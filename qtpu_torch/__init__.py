@@ -1,0 +1,26 @@
+"""qtpu_torch — the qtpu QKD post-processing pipeline in PyTorch and CUDA.
+
+The port of ``qtpu`` (JAX on a TPU) to PyTorch with hand-written CUDA
+kernels for an NVIDIA H100.  It mirrors ``qtpu``'s module names so each
+module's counterpart is easy to find, imports ``torch`` and never ``jax``,
+and takes an explicit ``device`` wherever it allocates.  ``qtpu`` stays the
+reference: on identical input the port gives the same syndromes, decoded
+bits, hashes, final keys and ledgers.
+
+This slice ports the two-party per-window reconciliation session
+(``pipeline``) and everything it runs: the protocol modules (``framing``,
+``prng``, ``messages``, ``link``, ``qber``, ``accounting``, ``ldpc.codes``,
+``ldpc.designed``, ``ldpc.calibrate`` — numpy copies of the reference's,
+since the machine with the card has no JAX), the threefry protocol PRNG
+(``random``), the device stream (``stream``), the window programs
+(``window_programs``), the syndrome encoder (``ldpc.encode``) and the
+layered min-sum decoder: plain PyTorch (``ldpc.decode``) and the Hopper
+kernel (``ldpc.cuda_bp`` + ``csrc/bp_layered.cu``).
+"""
+
+__version__ = "0.1.0"
+
+from qtpu_torch.pipeline import (PipelineConfig, AliceSession,  # noqa: F401
+                                 BobSession, production_config,
+                                 run_loopback, pump_sessions)
+from qtpu_torch.ldpc import QCCode, make_rate_ladder  # noqa: F401

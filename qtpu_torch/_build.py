@@ -1,0 +1,79 @@
+"""Build the package's CUDA sources with ``nvcc`` at first use.
+
+Each ``qtpu_torch/csrc/<name>.cu`` has a plain C entry point; it compiles to
+``build/qtpu_torch/lib<name>-<hash>.so`` at the repository root (the hash
+covers the source and the flags, so an edited source rebuilds) and loads
+with ``ctypes``.  Nothing here runs at import time: the CPU path never needs
+a compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build", "load", "build_log"]
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "qtpu_torch"
+
+# -fmad=false: the reference rounds every multiply and add separately (see
+# csrc/bp_layered.cu); never --use_fast_math.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOGS: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                           "of qtpu_torch build from source at first use")
+    return found
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
+    returns the library's path."""
+    src = _CSRC / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{name}-{tag}.so"
+    log = BUILD_DIR / f"lib{name}-{tag}.log"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    _LOGS[name] = log.read_text() if log.exists() else ""
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``'s library, once per
+    process."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build(name)))
+    return _LIBS[name]
+
+
+def build_log(name: str) -> str:
+    """The compiler's report (``-Xptxas -v``: registers, spills, shared
+    memory) from the build of ``name``."""
+    return _LOGS.get(name, "")
