@@ -6,17 +6,28 @@
 Phases (each prints one flushed line; any failure ends the run non-zero):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the layered-BP kernel from qtpu_torch/csrc/ with nvcc;
-3. kernel vs plain PyTorch decoder, bits / iterations / converged equal,
-   at a production native3 rung (n = 65536, B = 128 and B = 8) and a
-   regular n = 4096 code at B = 256, with both times;
-4. the PA FFT's integer margin at the production shape (< 0.25);
-5. session: production_config(), Alice and Bob on this card over a direct
+2. build: both BP kernels from qtpu_torch/csrc/, one nvcc each, in
+   parallel, with their -Xptxas -v lines;
+3. layered kernel vs its plain PyTorch decoder, bits / iterations /
+   converged equal, at a production native3 rung (n = 65536, B = 128 and
+   B = 8) and a regular n = 4096 code at B = 256, with both times;
+4. flooding kernel vs its plain decoder, the same checks: a regular
+   n = 4096 code at B = 1024 over QBER 1-5% (max_iters 60), and rung 1
+   (r0.600, punctured) of the n = 4096 mixed min-sum ladder at B = 64 and 8;
+5. the PA FFT's integer margin at the production shape (< 0.25);
+6. session: production_config(), Alice and Bob on this card over a direct
    link, fed a BSC(3%) stream generated on the card, for 20 windows —
    identical non-empty keys, equal ledgers, FER <= 0.05, a rung switch, a
-   retry round, and the kernel launched by the session;
-6. cross-device parity: a small config run on the card and on the CPU with
-   identical input gives identical keys, ledgers and per-window metrics.
+   retry round, and the layered kernel launched by the session;
+7. min-sum session: n = 4096 mixed ladder, flooding decoder, B = 1024, the
+   same checks, and only the flooding kernel launched;
+8. chain: the events -> key entry point (simulated detector events at 10^7
+   pairs/s, pfind, batched sifting, splice, min-sum EC) on this card —
+   pfind within 50 units of the true offset, identical non-empty keys,
+   equal ledgers, the flooding kernel launched;
+9. cross-device parity: small layered and min-sum configs run on the card
+   and on the CPU with identical input give identical keys, ledgers and
+   per-window metrics.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -33,6 +44,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 QBER = 0.03
 SESSION_WINDOWS = 20
+MINSUM_WINDOWS = 12
+CHAIN_WINDOWS = 16
+CHAIN_WARMUP = 3
+# benchmarks/config4_sifted_chain.py's source (BASELINE config 4).
+CHAIN_SOURCE = dict(pair_rate_hz=1e7, window_s=0.05, offset_ns=4_321.0,
+                    error_rate=0.025, dark_rate_hz=20_000.0)
 
 
 def say(msg: str) -> None:
@@ -78,14 +95,16 @@ def time_cuda(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_vs_plain(label, code, llr, syn, max_iters, reps):
+def kernel_vs_plain(label, code, llr, syn, max_iters, reps, alg="layered"):
     """Kernel against the plain decoder on the same card inputs; returns
     (max_abs_err, kernel ms, plain ms, mean iterations)."""
     import torch
     from qtpu_torch.ldpc.cuda_bp import make_cuda_decoder
-    from qtpu_torch.ldpc.decode import make_layered_decoder
-    kern = make_cuda_decoder(code, max_iters)
-    plain = make_layered_decoder(code, max_iters)
+    from qtpu_torch.ldpc.decode import (make_flooding_decoder,
+                                        make_layered_decoder)
+    kern = make_cuda_decoder(code, max_iters, alg=alg)
+    plain = (make_layered_decoder if alg == "layered"
+             else make_flooding_decoder)(code, max_iters)
     torch.cuda.synchronize()
     got = kern(llr, syn)
     torch.cuda.synchronize()
@@ -105,10 +124,120 @@ def kernel_vs_plain(label, code, llr, syn, max_iters, reps):
     return err, ms, plain_ms, iters
 
 
+def reset_launches():
+    from qtpu_torch.ldpc import cuda_bp
+    for name in cuda_bp.launches:
+        cuda_bp.launches[name] = 0
+
+
+def read_launches() -> dict:
+    import torch
+    from qtpu_torch.ldpc import cuda_bp
+    torch.cuda.synchronize()
+    return dict(cuda_bp.launches)
+
+
+def bsc_on_card(dev, total, seed):
+    """Alice's uniform bits and Bob's copy through a BSC(QBER), generated
+    on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a_src = torch.randint(0, 2, (total,), generator=g, device=dev,
+                          dtype=torch.uint8)
+    flips = (torch.rand((total,), generator=g, device=dev) < QBER)
+    return a_src, a_src ^ flips.to(torch.uint8)
+
+
+def check_session(label, alice, bob, timed, launches, kernel):
+    """Identical non-empty keys, equal ledgers, FER <= 0.05 and the
+    kernel launched; prints the session's line and returns its metrics."""
+    import numpy as np
+    ka, kb = alice.final_key_bits(), bob.final_key_bits()
+    assert ka.size > 0 and np.array_equal(ka, kb), \
+        f"{label}: final keys differ/empty"
+    assert alice.ledger.as_dict() == bob.ledger.as_dict(), \
+        f"{label}: ledgers differ"
+    mets = bob.metrics
+    fer = 1.0 - sum(m.blocks_ok for m in mets) / sum(m.blocks for m in mets)
+    led = bob.ledger
+    consumed = led.reconciled_bits + led.discarded_bits
+    assert fer <= 0.05, f"{label}: FER {fer}"
+    assert launches[kernel] > 0, f"{label}: {kernel} never launched"
+    retried = sum(m.blocks_retried for m in mets)
+    dt, n_timed = timed
+    say(f"{label}: {len(mets)} windows, window_ms={1e3 * dt / n_timed:.2f} "
+        f"(over {n_timed} windows after the first two) "
+        f"iters_mean={np.mean([m.iters_mean for m in mets]):.2f} "
+        f"fer={fer:.5f} secret_fraction={led.final_bits / consumed:.4f} "
+        f"rungs={sorted({m.rate_index for m in mets})} "
+        f"blocks_retried={retried} launches={launches} key_bits={ka.size}")
+    return mets
+
+
+def run_chain(cfg, dev, windows, warmup):
+    """The events -> key chain on ``dev`` over a direct link, fed
+    pre-generated detector events (the timestamp hardware's job, untimed).
+    Returns (alice, bob, true offset, pfind estimate, events per second
+    over the windows after ``warmup``)."""
+    import numpy as np
+    import torch
+    from qtpu_torch import sift
+    from qtpu_torch.chain import AliceChain, BobChain
+    from qtpu_torch.channel import EntangledPairSource
+    from qtpu_torch.framing import TIME_UNITS_PER_NS
+    from qtpu_torch.link import make_direct_pair
+    src = EntangledPairSource(**CHAIN_SOURCE)
+    rng = np.random.default_rng(7)
+    span = int(cfg.window_s * 1e9 * TIME_UNITS_PER_NS)
+    streams, counts, true = [], [], None
+    for w in range(windows):
+        ev = src.generate(rng, start_epoch=w)
+        true = ev.true_offset_units
+        if w == 0:
+            est = int(sift.pfind(
+                torch.from_numpy(sift.rebase_times(ev.alice.times, 0)).to(dev),
+                torch.from_numpy(sift.rebase_times(ev.bob.times, 0)).to(dev),
+                span, num_bins=cfg.pfind_bins))
+        base = np.int64(w) * span
+        streams.append((
+            (np.asarray(ev.alice.times[:ev.alice.count], np.int64) + base,
+             ev.alice.detectors[:ev.alice.count]),
+            (np.asarray(ev.bob.times[:ev.bob.count], np.int64) + base,
+             ev.bob.detectors[:ev.bob.count])))
+        counts.append(ev.alice.count + ev.bob.count)
+    la, lb = make_direct_pair()
+    alice = AliceChain(cfg, 0x5E55, la, device=dev)
+    bob = BobChain(cfg, 0x5E55, lb, device=dev)
+
+    def pump():
+        for _ in range(100_000):
+            p = bob.pump()
+            p = alice.pump() or p
+            if not p:
+                return
+
+    t = None
+    for w, (sa, sb) in enumerate(streams):
+        if w == warmup:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        alice.push_stream(*sa)
+        bob.push_stream(*sb)
+        pump()
+    bob.flush_sift()
+    pump()
+    alice.ec.drain_final()
+    bob.ec.drain_final()
+    torch.cuda.synchronize()
+    rate = sum(counts[warmup:]) / (time.perf_counter() - t)
+    return alice, bob, true, est, rate
+
+
 def run_session(cfg, alice_src, bob_src, device, windows, feed_chunk=None):
     """Both parties on ``device`` over a direct link; the stream is fed in
-    chunks as the session consumes it.  Returns (alice, bob, elapsed s of
-    the windows after the first two)."""
+    chunks as the session consumes it.  Returns (alice, bob, timed): timed
+    is (elapsed s, windows Bob finalized in that time), from Bob's second
+    settled window until his ``windows``-th; the rest is drained untimed."""
     from qtpu_torch.link import make_direct_pair
     from qtpu_torch.pipeline import AliceSession, BobSession, pump_sessions
     la, lb = make_direct_pair()
@@ -151,11 +280,11 @@ def run_session(cfg, alice_src, bob_src, device, windows, feed_chunk=None):
 
     feed()
     pump_until(2)
-    t = time.perf_counter()
+    t, done = time.perf_counter(), len(bob.metrics)
     pump_until(windows)
-    dt = time.perf_counter() - t
+    timed = (time.perf_counter() - t, len(bob.metrics) - done)
     pump_sessions(alice, bob, la, lb)
-    return alice, bob, dt
+    return alice, bob, timed
 
 
 def main() -> int:
@@ -167,13 +296,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not (ROOT / "qtpu_torch" / "csrc" / "bp_layered.cu").exists():
+    if not (ROOT / "qtpu_torch" / "csrc" / "bp_flooding.cu").exists():
         print("chip_smoke: run it from the repository (qtpu_torch/ missing)",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from qtpu_torch import _build
+    from qtpu_torch.chain import ChainConfig
     from qtpu_torch.ldpc import cuda_bp
     from qtpu_torch.ldpc.codes import make_rate_ladder, make_regular_code
     from qtpu_torch.pipeline import PipelineConfig, production_config
@@ -187,15 +317,17 @@ def main() -> int:
     say(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build, one nvcc per source, in parallel
     t = time.perf_counter()
-    _build.load("bp_layered")
-    ptx = [ln.strip() for ln in _build.build_log("bp_layered").splitlines()
-           if "registers" in ln or "spill" in ln]
-    say(f"build: bp_layered in {time.perf_counter() - t:.1f} s | "
-        + " | ".join(ptx))
+    _build.build(*cuda_bp.KERNELS.values())
+    dt = time.perf_counter() - t
+    for name in cuda_bp.KERNELS.values():
+        _build.load(name)
+        ptx = [ln.strip() for ln in _build.build_log(name).splitlines()
+               if "registers" in ln or "spill" in ln]
+        say(f"build: {name} (both in {dt:.1f} s) | " + " | ".join(ptx))
 
-    # 3. kernel vs plain decoder
+    # 3. layered kernel vs plain decoder
     cfg = production_config()
     ladder = make_rate_ladder(cfg.n, cfg.dv, cfg.target_rates,
                               seed=cfg.code_seed, alg=cfg.alg,
@@ -215,7 +347,24 @@ def main() -> int:
                                dev)
     kernel_vs_plain("regular (3,6)", reg, llr4, syn4, cfg.max_iters, reps=5)
 
-    # 4. PA FFT integer margin at the production shape
+    # 4. flooding kernel vs plain decoder
+    llr_f, syn_f = decode_inputs(reg, 1024, np.linspace(0.01, 0.05, 1024), 3,
+                                 dev)
+    f_err, f_ms, f_plain_ms, _ = kernel_vs_plain(
+        "flooding regular (3,6)", reg, llr_f, syn_f, 60, reps=5,
+        alg="minsum")
+    mixed = make_rate_ladder(4096, family="mixed", alg="minsum").steps[1]
+    assert mixed.name == "r0.600" and mixed.punct_cols
+    llr_m, syn_m = decode_inputs(mixed.code, 64, np.linspace(0.01, 0.05, 64),
+                                 4, dev, mixed.punct_cols)
+    for b in (64, 8):
+        e, _, _, _ = kernel_vs_plain(
+            f"flooding mixed rung 1 ({mixed.name}, punct {mixed.punct_cols})",
+            mixed.code, llr_m[:b].contiguous(), syn_m[:b].contiguous(), 60,
+            reps=5, alg="minsum")
+        f_err = max(f_err, e)
+
+    # 5. PA FFT integer margin at the production shape
     from qtpu_torch.link import make_direct_pair
     from qtpu_torch.pipeline import BobSession
     probe = BobSession(cfg, 0x5E55, make_direct_pair()[1], device=dev)
@@ -231,66 +380,100 @@ def main() -> int:
     assert margin < 0.25, f"PA FFT integer margin {margin} >= 0.25"
     say(f"pa: B=128 P=61440 l_max={l_max} integer margin {margin:.4f} < 0.25")
 
-    # 5. the production session on this card
-    per_window = cfg.n * cfg.blocks_per_window
-    total = (SESSION_WINDOWS + 4) * per_window
-    g = torch.Generator(device=dev).manual_seed(7)
-    a_src = torch.randint(0, 2, (total,), generator=g, device=dev,
-                          dtype=torch.uint8)
-    flips = (torch.rand((total,), generator=g, device=dev) < QBER)
-    b_src = a_src ^ flips.to(torch.uint8)
-    cuda_bp.launches = 0
-    alice, bob, dt = run_session(cfg, a_src, b_src, dev, SESSION_WINDOWS,
-                                 feed_chunk=1 << 23)
-    torch.cuda.synchronize()
-    launches = cuda_bp.launches
-    ka, kb = alice.final_key_bits(), bob.final_key_bits()
-    assert ka.size > 0 and np.array_equal(ka, kb), "final keys differ/empty"
-    assert alice.ledger.as_dict() == bob.ledger.as_dict(), "ledgers differ"
-    mets = bob.metrics
-    fer = 1.0 - sum(m.blocks_ok for m in mets) / sum(m.blocks for m in mets)
-    led = bob.ledger
-    consumed = led.reconciled_bits + led.discarded_bits
-    assert fer <= 0.05, f"FER {fer}"
-    assert launches > 0, "the session never launched the kernel"
+    # 6. the production session on this card
+    a_src, b_src = bsc_on_card(
+        dev, (SESSION_WINDOWS + 4) * cfg.n * cfg.blocks_per_window, 7)
+    reset_launches()
+    alice, bob, timed = run_session(cfg, a_src, b_src, dev, SESSION_WINDOWS,
+                                    feed_chunk=1 << 23)
+    prod = read_launches()
+    mets = check_session("session", alice, bob, timed, prod, "bp_layered")
     assert len({m.rate_index for m in mets}) > 1, "no rung switch"
-    retried = sum(m.blocks_retried for m in mets)
-    assert retried > 0, "no retry round"
-    say(f"session: {len(mets)} windows, window_ms={1e3 * dt / (len(mets) - 2):.2f} "
-        f"(windows 3..{len(mets)}) iters_mean="
-        f"{np.mean([m.iters_mean for m in mets]):.2f} fer={fer:.5f} "
-        f"secret_fraction={led.final_bits / consumed:.4f} "
-        f"rungs={sorted({m.rate_index for m in mets})} blocks_retried={retried} "
-        f"kernel_launches={launches} key_bits={ka.size}")
+    assert sum(m.blocks_retried for m in mets) > 0, "no retry round"
+    del alice, bob, a_src, b_src
 
-    # 6. cross-device parity (CPU vs card, identical input)
-    small = PipelineConfig(n=4096, blocks_per_window=16, qber_test_bits=512,
-                           max_inflight_windows=1)
+    # 7. the min-sum session (flooding decoder) on this card
+    ms_cfg = PipelineConfig(n=4096, family="mixed", alg="minsum",
+                            blocks_per_window=1024, qber_test_bits=8192,
+                            stream_capacity_bits=1 << 25)
+    a_src, b_src = bsc_on_card(
+        dev, (MINSUM_WINDOWS + 4) * ms_cfg.n * ms_cfg.blocks_per_window, 8)
+    reset_launches()
+    alice, bob, timed = run_session(ms_cfg, a_src, b_src, dev,
+                                    MINSUM_WINDOWS, feed_chunk=1 << 23)
+    ms_launches = read_launches()
+    check_session("minsum session", alice, bob, timed, ms_launches,
+                  "bp_flooding")
+    assert ms_launches["bp_layered"] == 0, "min-sum session ran bp_layered"
+    del alice, bob, a_src, b_src
+
+    # 8. the events -> key chain on this card
+    chain_cfg = ChainConfig(
+        pipeline=PipelineConfig(n=4096, family="mixed", alg="minsum",
+                                blocks_per_window=64,
+                                stream_capacity_bits=1 << 25),
+        window_s=CHAIN_SOURCE["window_s"], sift_batch_frames=8)
+    reset_launches()
+    alice, bob, true, est, rate = run_chain(chain_cfg, dev, CHAIN_WINDOWS,
+                                            CHAIN_WARMUP)
+    chain_launches = read_launches()
+    assert abs(est - true) < 50, f"pfind {est} vs true offset {true}"
+    assert abs(bob.offset - true) < 50, f"servo {bob.offset} vs {true}"
+    ka, kb = alice.ec.final_key_bits(), bob.ec.final_key_bits()
+    assert ka.size > 0 and np.array_equal(ka, kb), "chain keys differ/empty"
+    assert alice.ec.ledger.as_dict() == bob.ec.ledger.as_dict(), \
+        "chain ledgers differ"
+    assert chain_launches["bp_flooding"] > 0, "chain never ran bp_flooding"
+    assert chain_launches["bp_layered"] == 0, "chain ran bp_layered"
+    led = bob.ec.ledger
+    say(f"chain: {CHAIN_WINDOWS} simulation windows at "
+        f"{CHAIN_SOURCE['pair_rate_hz']:.0e} pairs/s, pfind error "
+        f"{est - true} units, final offset error {bob.offset - true}, "
+        f"events_per_s={rate:.0f} (windows {CHAIN_WARMUP + 1}.."
+        f"{CHAIN_WINDOWS}, incl. sift + EC drain), frames="
+        f"{len(bob.sift_stats)} sifted_bits={led.sifted_bits} "
+        f"ec_windows={len(bob.ec.metrics)} key_bits={ka.size} "
+        f"launches={chain_launches}")
+    del alice, bob
+
+    # 9. cross-device parity (CPU vs card, identical input)
     rng = np.random.default_rng(11)
     nbits = 6 * 4096 * 16 + 20_000
     a_np = rng.integers(0, 2, nbits, dtype=np.uint8)
     b_np = a_np ^ (rng.random(nbits) < QBER).astype(np.uint8)
-    runs = {}
-    for d in ("cpu", dev):
-        a, b, _ = run_session(small, a_np, b_np, d, 6)
-        runs[str(d)] = (a.final_key_bits(), b.final_key_bits(),
-                        a.ledger.as_dict(), b.ledger.as_dict(),
-                        [m.as_dict() for m in b.metrics])
-    c, g_ = runs["cpu"], runs[str(dev)]
-    assert c[0].size > 0
-    for x, y in ((c[0], g_[0]), (c[1], g_[1]), (c[0], c[1])):
-        assert np.array_equal(x, y), "final keys differ across devices"
-    assert c[2] == g_[2] == c[3] == g_[3], "ledgers differ across devices"
-    assert c[4] == g_[4], "window metrics differ across devices"
-    say(f"parity: cpu == cuda over {len(c[4])} windows, "
-        f"{c[0].size} key bits, ledgers and metrics equal")
+    for alg in ("layered", "minsum"):
+        small = PipelineConfig(n=4096, blocks_per_window=16,
+                               qber_test_bits=512, max_inflight_windows=1,
+                               alg=alg)
+        runs = {}
+        for d in ("cpu", dev):
+            a, b, _ = run_session(small, a_np, b_np, d, 6)
+            runs[str(d)] = (a.final_key_bits(), b.final_key_bits(),
+                            a.ledger.as_dict(), b.ledger.as_dict(),
+                            [m.as_dict() for m in b.metrics])
+        c, g_ = runs["cpu"], runs[str(dev)]
+        assert c[0].size > 0
+        for x, y in ((c[0], g_[0]), (c[1], g_[1]), (c[0], c[1])):
+            assert np.array_equal(x, y), f"{alg}: keys differ across devices"
+        assert c[2] == g_[2] == c[3] == g_[3], \
+            f"{alg}: ledgers differ across devices"
+        assert c[4] == g_[4], f"{alg}: window metrics differ across devices"
+        say(f"parity {alg}: cpu == cuda over {len(c[4])} windows, "
+            f"{c[0].size} key bits, ledgers and metrics equal")
 
     say(json.dumps({"kernels": [{
         "name": "bp_layered", "route": "cuda",
         "source": "qtpu_torch/csrc/bp_layered.cu",
         "replaces": "qtpu/ldpc/pallas_bp.py:168",
-        "launches": launches, "max_abs_err": float(err),
-        "ms": round(ms, 4), "plain_ms": round(plain_ms, 2)}]}))
+        "launches": prod["bp_layered"], "max_abs_err": float(err),
+        "ms": round(ms, 4), "plain_ms": round(plain_ms, 2)}, {
+        "name": "bp_flooding", "route": "cuda",
+        "source": "qtpu_torch/csrc/bp_flooding.cu",
+        "replaces": "qtpu/ldpc/pallas_bp.py:262",
+        "launches": chain_launches["bp_flooding"],
+        "launches_minsum_session": ms_launches["bp_flooding"],
+        "max_abs_err": float(f_err),
+        "ms": round(f_ms, 4), "plain_ms": round(f_plain_ms, 2)}]}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

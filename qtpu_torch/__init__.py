@@ -7,15 +7,17 @@ and takes an explicit ``device`` wherever it allocates.  ``qtpu`` stays the
 reference: on identical input the port gives the same syndromes, decoded
 bits, hashes, final keys and ledgers.
 
-This slice ports the two-party per-window reconciliation session
-(``pipeline``) and everything it runs: the protocol modules (``framing``,
-``prng``, ``messages``, ``link``, ``qber``, ``accounting``, ``ldpc.codes``,
-``ldpc.designed``, ``ldpc.calibrate`` — numpy copies of the reference's,
-since the machine with the card has no JAX), the threefry protocol PRNG
-(``random``), the device stream (``stream``), the window programs
-(``window_programs``), the syndrome encoder (``ldpc.encode``) and the
-layered min-sum decoder: plain PyTorch (``ldpc.decode``) and the Hopper
-kernel (``ldpc.cuda_bp`` + ``csrc/bp_layered.cu``).
+Ported so far: the events -> key chain (``chain``: simulated detector
+events from ``channel``, sifting in ``sift``) and the two-party per-window
+reconciliation session (``pipeline``) with everything it runs: the protocol
+modules (``framing``, ``prng``, ``messages``, ``link``, ``qber``,
+``accounting``, ``channel``, ``ldpc.codes``, ``ldpc.designed``,
+``ldpc.calibrate`` — numpy copies of the reference's, since the machine
+with the card has no JAX), the threefry protocol PRNG (``random``), the
+device stream (``stream``), the window programs (``window_programs``), the
+syndrome encoder (``ldpc.encode``) and the layered and flooding min-sum
+decoders: plain PyTorch (``ldpc.decode``) and the Hopper kernels
+(``ldpc.cuda_bp`` + ``csrc/bp_layered.cu``, ``csrc/bp_flooding.cu``).
 """
 
 __version__ = "0.1.0"

@@ -23,7 +23,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "qtpu_torch"
 
 # -fmad=false: the reference rounds every multiply and add separately (see
-# csrc/bp_layered.cu); never --use_fast_math.
+# csrc/bp_layered.cu, csrc/bp_flooding.cu); never --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -43,33 +43,52 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    returns the library's path."""
+def _paths(name: str) -> tuple[Path, Path, Path]:
+    """(source, library, compiler log) of ``csrc/<name>.cu``."""
     src = _CSRC / f"{name}.cu"
     tag = hashlib.sha256(src.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{tag}.so"
-    log = BUILD_DIR / f"lib{name}-{tag}.log"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+    return (src, BUILD_DIR / f"lib{name}-{tag}.so",
+            BUILD_DIR / f"lib{name}-{tag}.log")
+
+
+def build(*names: str) -> list[Path]:
+    """Compile each ``csrc/<name>.cu`` that has no up-to-date library, one
+    ``nvcc`` per source, all started together; returns the libraries'
+    paths.  Every started compiler is waited for before a failure raises."""
+    jobs = []
+    for name in names:
+        src, out, log = _paths(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((proc, src, tmp, out, log))
+    failed = []
+    for proc, src, tmp, out, log in jobs:
+        stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
+            failed.append(f"nvcc failed on {src.name}:\n{stdout}{stderr}")
+            continue
+        log.write_text(stdout + stderr)
         os.replace(tmp, out)
-    _LOGS[name] = log.read_text() if log.exists() else ""
-    return out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    paths = []
+    for name in names:
+        _, out, log = _paths(name)
+        _LOGS[name] = log.read_text() if log.exists() else ""
+        paths.append(out)
+    return paths
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library, once per
     process."""
     if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build(name)))
+        _LIBS[name] = ctypes.CDLL(str(build(name)[0]))
     return _LIBS[name]
 
 

@@ -24,9 +24,10 @@ values):
 
 PyTorch runs eagerly, so the 12-word header stays a host numpy array and
 its fields are plain Python ints; index arrays chosen by the host protocol
-(retry positions and rows) arrive as numpy too.  The decoder is the Hopper
-kernel for CUDA tensors and the plain PyTorch decoder for CPU tensors
-(``qtpu_torch.ldpc.cuda_bp``).  The mesh branch is not ported.
+(retry positions and rows) arrive as numpy too.  The decoder (layered or
+flooding min-sum) is its Hopper kernel for CUDA tensors and its plain
+PyTorch version for CPU tensors (``qtpu_torch.ldpc.cuda_bp``).  The mesh
+branch is not ported.
 """
 
 from __future__ import annotations
@@ -134,14 +135,10 @@ class WindowPrograms(NamedTuple):
 
 
 def _pick_decoder(code: QCCode, max_iters: int, alg: str):
-    """The layered decoder: the Hopper kernel on CUDA tensors, the plain
-    PyTorch decoder on CPU tensors.  Other schedules are not ported."""
-    if alg != "layered":
-        raise NotImplementedError(
-            f"alg={alg!r} has no CUDA kernel in qtpu_torch yet (the flooding "
-            f"min-sum kernel, qtpu/ldpc/pallas_bp.py::kernel, is still to be "
-            f"ported); use alg='layered'")
-    return make_cuda_decoder(code, max_iters)
+    """The decoder of ``alg`` ("layered" or flooding "minsum"): its Hopper
+    kernel on CUDA tensors, its plain PyTorch version on CPU tensors.
+    Sum-product raises NotImplementedError (no kernel in the reference)."""
+    return make_cuda_decoder(code, max_iters, alg=alg)
 
 
 def _check_exact_matmul(x: torch.Tensor) -> None:

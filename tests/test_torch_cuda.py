@@ -1,4 +1,4 @@
-"""qtpu_torch on the card: the layered-BP kernel and the session on CUDA.
+"""qtpu_torch on the card: both BP kernels, sessions and sifting on CUDA.
 
 Marked ``cuda``; every test skips without a CUDA device.  On a machine with
 a card (which has no JAX, so the JAX import of tests/conftest.py must be
@@ -6,18 +6,24 @@ switched off):
 
     QTPU_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerance: exact — the kernel against the plain PyTorch decoder (bits,
-iterations, converged), and a session on the card against the same session
-on the CPU (final keys, ledgers, per-window metrics).
+Tolerance: exact — each kernel against its plain PyTorch decoder (bits,
+iterations, converged), a session on the card against the same session on
+the CPU (final keys, ledgers, per-window metrics), and the sift functions
+on the card against the CPU on the same events (residuals to 1e-5
+relative: their float32 division may round differently on the card).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from qtpu_torch import sift
+from qtpu_torch.channel import EntangledPairSource
 from qtpu_torch.ldpc import cuda_bp
-from qtpu_torch.ldpc.codes import make_rate_ladder, make_regular_code
-from qtpu_torch.ldpc.decode import channel_llr, make_layered_decoder
+from qtpu_torch.ldpc.codes import (QCCode, _group_edges, make_rate_ladder,
+                                   make_regular_code)
+from qtpu_torch.ldpc.decode import (channel_llr, make_flooding_decoder,
+                                    make_layered_decoder)
 from qtpu_torch.ldpc.encode import make_batch_encoder
 from qtpu_torch.pipeline import PipelineConfig, run_loopback
 
@@ -32,13 +38,21 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _inputs(code, qbers, seed, dev):
+def _inputs(code, qbers, seed, dev, punct_cols=()):
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, 2, (len(qbers), code.n), dtype=np.uint8)
     noise = rng.random((len(qbers), code.n)) < np.asarray(qbers)[:, None]
     keys = torch.from_numpy(keys).to(dev)
     llr = channel_llr(keys ^ torch.from_numpy(noise).to(dev), 0.03)
+    for c in punct_cols:
+        llr[:, c * code.z:(c + 1) * code.z] = 0.0
     return llr, make_batch_encoder(code)(keys)
+
+
+def _same(got, ref):
+    assert torch.equal(got.bits, ref.bits)
+    assert torch.equal(got.iterations, ref.iterations)
+    assert torch.equal(got.converged, ref.converged)
 
 
 @pytest.mark.parametrize("which", ["regular1024", "native3_2048"])
@@ -50,14 +64,46 @@ def test_kernel_matches_plain(dev, which):
                                 alg="layered").steps[-1].code
         qbers = np.linspace(0.001, 0.03, 16)
     llr, syn = _inputs(code, qbers, 1, dev)
-    before = cuda_bp.launches
+    before = dict(cuda_bp.launches)
     got = cuda_bp.make_cuda_decoder(code, 40)(llr, syn)
     torch.cuda.synchronize()
-    assert cuda_bp.launches == before + 1
-    ref = make_layered_decoder(code, 40)(llr, syn)
-    assert torch.equal(got.bits, ref.bits)
-    assert torch.equal(got.iterations, ref.iterations)
-    assert torch.equal(got.converged, ref.converged)
+    assert cuda_bp.launches == dict(before, bp_layered=before["bp_layered"]
+                                    + 1)
+    _same(got, make_layered_decoder(code, 40)(llr, syn))
+
+
+def _parallel_edge_code():
+    """Base row 0 with two edges into column 0, row 1 two into column 3."""
+    rows = np.array([0, 0, 0, 0, 1, 1, 1, 1, 1], np.int32)
+    cols = np.array([0, 0, 1, 2, 1, 2, 3, 3, 0], np.int32)
+    return QCCode(z=16, mb=2, nb=4, edge_row=rows, edge_col=cols,
+                  edge_shift=np.array([0, 5, 3, 7, 1, 2, 0, 9, 4], np.int32),
+                  row_edges=_group_edges(rows, 2),
+                  col_edges=_group_edges(cols, 4))
+
+
+@pytest.mark.parametrize("which", ["regular1024", "mixed4096_r1",
+                                   "parallel_edges"])
+def test_flooding_kernel_matches_plain(dev, which):
+    punct = ()
+    if which == "regular1024":
+        code, qbers = make_regular_code(1024), np.linspace(0.005, 0.09, 16)
+    elif which == "mixed4096_r1":
+        step = make_rate_ladder(4096, family="mixed", alg="minsum").steps[1]
+        code, punct = step.code, step.punct_cols
+        qbers = np.linspace(0.005, 0.06, 16)
+    else:
+        code, qbers = _parallel_edge_code(), np.linspace(0.01, 0.2, 16)
+    llr, syn = _inputs(code, qbers, 4, dev, punct)
+    before = dict(cuda_bp.launches)
+    got = cuda_bp.make_cuda_decoder(code, 40, alg="minsum")(llr, syn)
+    torch.cuda.synchronize()
+    assert cuda_bp.launches == dict(before, bp_flooding=before["bp_flooding"]
+                                    + 1)
+    ref = make_flooding_decoder(code, 40)(llr, syn)
+    _same(got, ref)
+    if which == "regular1024":
+        assert ref.converged.any() and not ref.converged.all()
 
 
 def test_kernel_rejects_bad_inputs(dev):
@@ -72,9 +118,28 @@ def test_kernel_rejects_bad_inputs(dev):
         dec(llr.t().contiguous().t(), syn)
 
 
-def test_session_on_card_matches_cpu(dev):
+def test_flooding_kernel_rejects_bad_inputs(dev):
+    code = make_regular_code(1024)
+    llr, syn = _inputs(code, [0.01] * 4, 2, dev)
+    dec = cuda_bp.make_cuda_decoder(code, 10, alg="minsum")
+    before = dict(cuda_bp.launches)
+    with pytest.raises(ValueError, match="float32"):
+        dec(llr.double(), syn)
+    with pytest.raises(ValueError, match="uint8"):
+        dec(llr, syn.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        dec(llr.t().contiguous().t(), syn)
+    with pytest.raises(ValueError, match="CUDA"):
+        dec(llr, syn.cpu())
+    with pytest.raises(ValueError, match=str(code.n)):
+        dec(llr[:, :-1].contiguous(), syn)
+    assert cuda_bp.launches == before
+
+
+@pytest.mark.parametrize("alg", ["layered", "minsum"])
+def test_session_on_card_matches_cpu(dev, alg):
     cfg = PipelineConfig(n=1024, blocks_per_window=4, qber_test_bits=512,
-                         max_inflight_windows=1)
+                         max_inflight_windows=1, alg=alg)
     rng = np.random.default_rng(3)
     a = rng.integers(0, 2, 30_000, dtype=np.uint8)
     b = a ^ (rng.random(30_000) < 0.03).astype(np.uint8)
@@ -87,3 +152,58 @@ def test_session_on_card_matches_cpu(dev):
     assert ga.ledger.as_dict() == gb.ledger.as_dict() == ca.ledger.as_dict()
     assert [m.as_dict() for m in gb.metrics] == [m.as_dict()
                                                 for m in cb.metrics]
+
+
+@pytest.fixture(scope="module")
+def sift_frames():
+    """Two windows of detector events padded to one capacity."""
+    src = EntangledPairSource(pair_rate_hz=1e6, window_s=0.05,
+                              offset_ns=4_321.0, error_rate=0.025,
+                              dark_rate_hz=20_000)
+    rng = np.random.default_rng(21)
+    evs = [src.generate(rng, start_epoch=w) for w in range(2)]
+    na = max(e.alice.count for e in evs)
+    nb = max(e.bob.count for e in evs)
+    arrs = [np.full((2, na), sift.DEVICE_PAD, np.int32),
+            np.zeros((2, na), np.uint8),
+            np.full((2, nb), sift.DEVICE_PAD, np.int32),
+            np.zeros((2, nb), np.uint8), np.zeros((2, nb), np.uint8)]
+    for i, e in enumerate(evs):
+        da = e.alice.detectors[:e.alice.count].astype(np.int32)
+        db = e.bob.detectors[:e.bob.count].astype(np.int32)
+        arrs[0][i, :e.alice.count] = sift.rebase_times(
+            e.alice.times[:e.alice.count], 0)
+        arrs[1][i, :e.alice.count] = da >> 1
+        arrs[2][i, :e.bob.count] = sift.rebase_times(
+            e.bob.times[:e.bob.count], 0)
+        arrs[3][i, :e.bob.count] = db >> 1
+        arrs[4][i, :e.bob.count] = db & 1
+    return arrs, evs[0].true_offset_units
+
+
+def test_sift_on_card_matches_cpu(dev, sift_frames):
+    arrs, true = sift_frames
+    cpu = [torch.from_numpy(a) for a in arrs]
+    gpu = [a.to(dev) for a in cpu]
+    span = int(0.05 * 8e9)
+    off_c = sift.pfind(cpu[0][0], cpu[2][0], span, num_bins=1 << 18)
+    off_g = sift.pfind(gpu[0][0], gpu[2][0], span, num_bins=1 << 18)
+    assert int(off_g) == int(off_c) and abs(int(off_c) - true) < 50
+    r_c = sift.make_frame_matcher(2, 40)(*cpu, int(off_c))
+    r_g = sift.make_frame_matcher(2, 40)(*gpu, int(off_c))
+    for f in ("sift_mask", "bob_bits", "matched_counts", "sifted_counts",
+              "final_offset"):
+        assert torch.equal(getattr(r_g, f).cpu(), getattr(r_c, f)), f
+    np.testing.assert_allclose(r_g.residuals.cpu().numpy(),
+                               r_c.residuals.numpy(), rtol=1e-5)
+    out_c = sift.sift_outputs(r_c.sift_mask, r_c.bob_bits)
+    out_g = sift.sift_outputs(r_g.sift_mask, r_g.bob_bits)
+    assert torch.equal(out_g[0].cpu(), out_c[0])
+    assert torch.equal(out_g[1].cpu(), out_c[1])
+    total = int(out_c[1].sum())
+    assert total > 10_000
+    assert torch.equal(out_g[2][:total].cpu(), out_c[2][:total])
+    k = int(out_c[1][0])
+    raw = cpu[1][0]
+    assert torch.equal(sift.splice(raw.to(dev), out_g[0][0, :k]).cpu(),
+                       sift.splice(raw, out_c[0][0, :k]))

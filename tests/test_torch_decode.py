@@ -1,13 +1,16 @@
-"""The port's plain layered decoder and codes vs the reference.
+"""The port's plain decoders and codes vs the reference.
 
-The plain PyTorch decoder (the CPU path, and the CUDA kernel's oracle on the
-card) must equal three references on mixed-QBER batches: the XLA layered
+Each plain PyTorch decoder (the CPU path, and its CUDA kernel's oracle on
+the card) must equal three references on mixed-QBER batches: the XLA
 decoder, the Pallas kernel in interpret mode, and the golden model — bits,
-iterations and converged flags, exactly.  A native3 rung at n=2048 (z=64,
+iterations and converged flags, exactly.  For the layered schedule:  A native3 rung at n=2048 (z=64,
 row degree 27) is held to golden, including blocks that never converge
 (XLA on the CPU fuses ``alpha*min - c2v`` into one FMA there, the golden
-model rounds twice, and so do the port and the kernel).  The port's own
-``make_rate_ladder`` must rebuild the reference's ladders array for array.
+model rounds twice, and so do the port and the kernel).  For flooding
+min-sum: a regular n=1024 batch that includes blocks which never converge,
+and rung 1 (r0.600) of the n=1024 mixed ladder with its punctured columns
+at LLR 0.  The port's own ``make_rate_ladder`` must rebuild the
+reference's ladders array for array.
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ from qtpu.ldpc.encode import make_batch_encoder
 from qtpu.ldpc.pallas_bp import make_pallas_decoder
 from qtpu_torch.ldpc import cuda_bp
 from qtpu_torch.ldpc.codes import code_from_reference, make_rate_ladder
-from qtpu_torch.ldpc.decode import make_layered_decoder
+from qtpu_torch.ldpc.decode import make_flooding_decoder, make_layered_decoder
 from qtpu_torch.window_programs import _pick_decoder
 
 MAX_ITERS = 40
@@ -56,10 +59,10 @@ def _assert_same(ref, res):
                                   res.converged.numpy())
 
 
-def _assert_same_as_golden(code, llr, syn, res):
+def _assert_same_as_golden(code, llr, syn, res, alg="layered"):
     for b in range(llr.shape[0]):
         g = golden.decode(code, llr[b], syn[b], max_iters=MAX_ITERS,
-                          alg="layered")
+                          alg=alg)
         np.testing.assert_array_equal(g.bits.reshape(-1), res.bits[b].numpy())
         assert g.iterations == int(res.iterations[b])
         assert g.converged == bool(res.converged[b])
@@ -97,7 +100,7 @@ def test_plain_vs_golden_native3_rung():
 
 def test_cuda_wrapper_runs_plain_decoder_on_cpu(regular):
     code, llr, syn, res = regular
-    before = cuda_bp.launches
+    before = dict(cuda_bp.launches)
     got = cuda_bp.make_cuda_decoder(code_from_reference(code), MAX_ITERS)(
         torch.from_numpy(llr), torch.from_numpy(syn))
     _assert_same(res, got)
@@ -130,16 +133,117 @@ def test_code_tables_row_order_and_parallel_edges():
         cuda_bp.code_tables(dup)
 
 
-@pytest.mark.parametrize("alg", ["minsum", "sumprod"])
+@pytest.fixture(scope="module", params=["regular", "mixed_r1"])
+def flooding(request):
+    """(reference code, llr, syn, plain flooding result): a regular n=1024
+    batch from QBER 0.5% to 9% (the top blocks never converge), or rung 1
+    of the n=1024 mixed ladder (irregular, punctured columns at LLR 0)."""
+    if request.param == "regular":
+        code = make_regular_code(1024)
+        llr, syn = _scenario(code, np.repeat([0.005, 0.03, 0.06, 0.09], 2),
+                             11, 8)
+    else:
+        step = j_make_rate_ladder(1024, family="mixed", alg="minsum").steps[1]
+        code = step.code
+        assert step.name == "r0.600" and step.punct_cols == (13, 4)
+        llr, syn = _scenario(code, np.repeat([0.005, 0.02, 0.04, 0.06], 2),
+                             12, 8)
+        for c in step.punct_cols:
+            llr[:, c * code.z:(c + 1) * code.z] = 0.0
+    res = make_flooding_decoder(code_from_reference(code), MAX_ITERS)(
+        torch.from_numpy(llr), torch.from_numpy(syn))
+    if request.param == "regular":
+        assert res.converged.any() and not res.converged.all()
+    return code, llr, syn, res
+
+
+def test_flooding_vs_xla_minsum(flooding):
+    code, llr, syn, res = flooding
+    ref = make_batch_decoder(code, max_iters=MAX_ITERS, alg="minsum")(
+        jnp.asarray(llr), jnp.asarray(syn))
+    _assert_same(ref, res)
+
+
+def test_flooding_vs_pallas_interpret(flooding):
+    code, llr, syn, res = flooding
+    ref = make_pallas_decoder(code, max_iters=MAX_ITERS, batch_tile=8,
+                              interpret=True, alg="minsum")(
+        jnp.asarray(llr), jnp.asarray(syn))
+    _assert_same(ref, res)
+
+
+def test_flooding_vs_golden(flooding):
+    _assert_same_as_golden(*flooding, alg="minsum")
+
+
+def test_flooding_wrapper_runs_plain_decoder_on_cpu(flooding):
+    code, llr, syn, res = flooding
+    before = dict(cuda_bp.launches)
+    got = cuda_bp.make_cuda_decoder(code_from_reference(code), MAX_ITERS,
+                                    alg="minsum")(
+        torch.from_numpy(llr), torch.from_numpy(syn))
+    _assert_same(res, got)
+    assert cuda_bp.launches == before
+
+
+@pytest.mark.parametrize("alg", ["sumprod"])
 def test_flooding_schedules_not_ported(alg):
     code = code_from_reference(make_regular_code(1024))
     with pytest.raises(NotImplementedError, match=alg):
         _pick_decoder(code, 10, alg)
 
 
-@pytest.mark.parametrize("n,family", [(65536, "native3"), (1024, "mixed")])
-def test_rate_ladder_matches_reference(n, family):
-    kw = dict(seed=0x51C0DE, alg="layered", family=family)
+def test_pick_decoder_routes_minsum_to_flooding(flooding):
+    code, llr, syn, res = flooding
+    got = _pick_decoder(code_from_reference(code), MAX_ITERS, "minsum")(
+        torch.from_numpy(llr), torch.from_numpy(syn))
+    _assert_same(res, got)
+
+
+def _parallel_edge_code(pkg):
+    """A small QC code whose base row 0 holds two edges into column 0 and
+    row 1 two into column 3 (in ``pkg``, the reference's or the port's
+    ``codes`` module)."""
+    rows = np.array([0, 0, 0, 0, 1, 1, 1, 1, 1], np.int32)
+    cols = np.array([0, 0, 1, 2, 1, 2, 3, 3, 0], np.int32)
+    shifts = np.array([0, 5, 3, 7, 1, 2, 0, 9, 4], np.int32)
+    return pkg.QCCode(z=16, mb=2, nb=4, edge_row=rows, edge_col=cols,
+                      edge_shift=shifts,
+                      row_edges=pkg._group_edges(rows, 2),
+                      col_edges=pkg._group_edges(cols, 4))
+
+
+def test_flooding_takes_parallel_edges():
+    import qtpu.ldpc.codes as jcodes
+    import qtpu_torch.ldpc.codes as tcodes
+    ref, code = _parallel_edge_code(jcodes), _parallel_edge_code(tcodes)
+    with pytest.raises(ValueError, match="parallel"):
+        cuda_bp.code_tables(code)
+    tab = cuda_bp.flooding_tables(code)
+    mb, nb, E = code.mb, code.nb, code.num_edges
+    row_start, rcol = tab[:mb + 1], tab[mb + 1:mb + 1 + E]
+    col_start = tab[mb + 1 + 2 * E:mb + nb + 2 + 2 * E]
+    cpos, cshift = tab[mb + nb + 2 + 2 * E:-E], tab[-E:]
+    order = [e for row in code.row_edges for e in row if e >= 0]
+    np.testing.assert_array_equal(rcol, code.edge_col[order])
+    for j, col in enumerate(code.col_edges):
+        slots = [e for e in col if e >= 0]
+        got = cpos[col_start[j]:col_start[j + 1]]
+        np.testing.assert_array_equal([order[k] for k in got], slots)
+        np.testing.assert_array_equal(cshift[col_start[j]:col_start[j + 1]],
+                                      code.edge_shift[slots])
+    assert list(row_start) == [0, 4, 9]
+    llr, syn = _scenario(ref, np.repeat([0.01, 0.05, 0.1, 0.2], 2), 13, 8)
+    res = cuda_bp.make_cuda_decoder(code, MAX_ITERS, alg="minsum")(
+        torch.from_numpy(llr), torch.from_numpy(syn))
+    _assert_same_as_golden(ref, llr, syn, res, alg="minsum")
+
+
+@pytest.mark.parametrize("n,family,alg", [
+    (65536, "native3", "layered"), (1024, "mixed", "layered"),
+    (4096, "mixed", "minsum"), (1024, "regular", "minsum")])
+def test_rate_ladder_matches_reference(n, family, alg):
+    kw = dict(seed=0x51C0DE, alg=alg, family=family)
     ref = j_make_rate_ladder(n, **kw)
     got = make_rate_ladder(n, **kw)
     assert len(ref.steps) == len(got.steps)

@@ -55,7 +55,7 @@ def _is_import(line: str) -> bool:
 
 @pytest.mark.parametrize("rel", [
     "framing.py", "prng.py", "qber.py", "link.py", "messages.py",
-    "accounting.py", "ldpc/codes.py", "ldpc/designed.py"])
+    "accounting.py", "channel.py", "ldpc/codes.py", "ldpc/designed.py"])
 def test_numpy_copy_matches_original(rel):
     orig = (ROOT / "qtpu" / rel).read_text().splitlines()
     port = (ROOT / "qtpu_torch" / rel).read_text()

@@ -1,7 +1,8 @@
 """The whole slice: qtpu_torch.pipeline.run_loopback vs qtpu.pipeline's.
 
 Both packages run the same numpy bits with the config of
-tests/test_pipeline.py, on the CPU; final keys (both parties), key index,
+tests/test_pipeline.py, on the CPU, with the layered and the flooding
+min-sum decoder; final keys (both parties), key index,
 ledgers and per-window WindowMetrics must be identical.  Tolerance: exact.
 
 Resolution timing is made the same on both sides: a CPU tensor is complete
@@ -69,21 +70,24 @@ def _sifted(seed, total, qber):
     return alice, alice ^ (rng.random(total) < qber).astype(np.uint8)
 
 
+@pytest.mark.parametrize("alg", ["layered", "minsum"])
 @pytest.mark.parametrize("qber", [0.01, 0.03, 0.05])
-def test_loopback_matches_reference(qber):
-    _both(*_sifted(int(qber * 1000), 40_000, qber))
+def test_loopback_matches_reference(qber, alg):
+    _both(*_sifted(int(qber * 1000), 40_000, qber), alg=alg)
 
 
 def test_loopback_wire_matches_reference():
     _both(*_sifted(30, 40_000, 0.03), wire=True)
 
 
-def test_loopback_retry_matches_reference():
+@pytest.mark.parametrize("alg", ["layered", "minsum"])
+def test_loopback_retry_matches_reference(alg):
     """tests/test_pipeline.py's blind-retry scenario: the channel runs
     6.8% against a 4% cold prior, so windows fail blocks and a retry round
     runs."""
     _, tb = _both(*_sifted(3, 30_000, 0.068), qber_initial=0.04,
-                  qber_test_bits=64, qber_test_floor=32, max_retries=1)
+                  qber_test_bits=64, qber_test_floor=32, max_retries=1,
+                  alg=alg)
     assert sum(m.blocks_retried for m in tb.metrics) > 0
 
 
@@ -93,9 +97,6 @@ def test_unported_options_raise():
         tpipe.AliceSession(_cfg(tpipe, pa_mode="stream"), 1, la)
     with pytest.raises(NotImplementedError, match="mesh"):
         tpipe.BobSession(_cfg(tpipe), 1, lb, mesh=object())
-    bob = tpipe.BobSession(_cfg(tpipe, alg="minsum"), 1, lb)
-    with pytest.raises(NotImplementedError, match="minsum"):
-        bob.programs(0)
 
 
 def test_program_cache_is_bounded(monkeypatch):
