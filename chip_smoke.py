@@ -27,7 +27,24 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    equal ledgers, the flooding kernel launched;
 9. cross-device parity: small layered and min-sum configs run on the card
    and on the CPU with identical input give identical keys, ledgers and
-   per-window metrics.
+   per-window metrics;
+10. stream PA: ``qtpu_torch.pa.stream_toeplitz`` on the card equals the
+    golden GF(2) product at a small shape crossing segment boundaries, and
+    at the production flush shape (4 windows x 128 blocks of the native3
+    rung with the largest PA output, N = 2^25) the session's float64 flush
+    equals the CPU's run of the same call; prints the float32 margin at the
+    reference's 2^16-bit segments, the float64 margin, and both flush
+    times;
+11. stream-PA production session: production_config(pa_mode="stream") for
+    8 windows (>= 2 flushes) — identical non-empty keys, equal ledgers,
+    ledger.final_bits == the emitted key length, the layered kernel
+    launched;
+12. the CLI on the card: ``cli.main([... "demo"])`` in process with phase
+    8's chain settings (identical keys, the flooding kernel launched),
+    ``fer --rung 1 --qber 0.03 --blocks 1024`` at n = 4096 (the flooding
+    kernel launched), and ``python -m qtpu_torch.cli ... alice`` / ``bob``
+    as two processes on this card over 127.0.0.1 with channel
+    authentication (equal key digests and ledgers, auth_bits > 0).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -47,6 +64,9 @@ SESSION_WINDOWS = 20
 MINSUM_WINDOWS = 12
 CHAIN_WINDOWS = 16
 CHAIN_WARMUP = 3
+STREAM_WINDOWS = 8
+DEMO_WINDOWS = 8
+TCP_WINDOWS = 6
 # benchmarks/config4_sifted_chain.py's source (BASELINE config 4).
 CHAIN_SOURCE = dict(pair_rate_hz=1e7, window_s=0.05, offset_ns=4_321.0,
                     error_rate=0.025, dark_rate_hz=20_000.0)
@@ -287,6 +307,133 @@ def run_session(cfg, alice_src, bob_src, device, windows, feed_chunk=None):
     return alice, bob, timed
 
 
+def stream_pa_phase(dev, P, l_max):
+    """Phase 10: stream PA on the card against golden (small) and against
+    the CPU's run of the same call (the production flush of a rung with P
+    payload bits and l_max PA bits per block)."""
+    import numpy as np
+    import torch
+    from qtpu_torch import pa, prng
+    rng = np.random.default_rng(10)
+    n_small, m, seg = 2048, 300, 512
+    x = rng.integers(0, 2, n_small, dtype=np.uint8)
+    t = rng.integers(0, 2, n_small + m - 1, dtype=np.uint8)
+    want = pa.toeplitz_hash_golden(t, x, m)
+    for precision in (torch.float32, torch.float64):
+        got = pa.stream_toeplitz(torch.from_numpy(t).to(dev),
+                                 torch.from_numpy(x).to(dev), m,
+                                 segment=seg, precision=precision)
+        assert np.array_equal(got.cpu().numpy(), want), \
+            f"stream_toeplitz ({precision}) != golden on the card"
+    # The production flush: 4 windows of 128 verified blocks of P bits,
+    # padded to N = 2^25, m = the windows' PA output.
+    size = 4 * 128 * P
+    N = 1 << (size - 1).bit_length()
+    m = 4 * 128 * l_max
+    g = torch.Generator(device=dev).manual_seed(10)
+    stream = torch.zeros(N, dtype=torch.uint8, device=dev)
+    stream[:size] = torch.randint(0, 2, (size,), generator=g, device=dev,
+                                  dtype=torch.uint8)
+    t0 = time.perf_counter()
+    seed = prng.random_bits(prng.derive(prng.root_key(1), "pa-stream", 0),
+                            (m + N - 1,))
+    seed_ms = 1e3 * (time.perf_counter() - t0)
+    t_dev = torch.from_numpy(seed).to(dev)
+    flush = dict(segment=N // 2, precision=torch.float64)   # the session's
+    ref_shape = dict(segment=1 << 16, precision=torch.float32)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t1)
+
+    fk, flush_ms = timed(lambda: pa.stream_toeplitz(t_dev, stream, m, **flush))
+    t1 = time.perf_counter()
+    cpu = pa.stream_toeplitz(t_dev.cpu(), stream.cpu(), m, **flush)
+    cpu_ms = 1e3 * (time.perf_counter() - t1)
+    assert torch.equal(fk.cpu(), cpu), "card flush != CPU flush"
+    f32, f32_ms = timed(lambda: pa.stream_toeplitz(t_dev, stream, m,
+                                                   **ref_shape))
+    margin32 = pa.stream_margin(t_dev, stream, m, **ref_shape)
+    margin64 = pa.stream_margin(t_dev, stream, m, **flush)
+    assert margin64 < 0.25, f"float64 flush margin {margin64}"
+    say(f"stream pa: card == golden at N={n_small} (4 segments); flush "
+        f"P={P} N=2^{N.bit_length() - 1} m={m} ({m / N:.3f} N): card == cpu "
+        f"(float64, 2 segments of 2^{N.bit_length() - 2}), margin "
+        f"{margin64:.3g}, flush_ms={flush_ms:.2f} "
+        f"(cpu {cpu_ms:.0f} ms), host seed bits {seed_ms:.0f} ms ; float32 "
+        f"in 2^16-bit segments (the reference's): margin {margin32:.4f}, "
+        f"{f32_ms:.2f} ms, equal to float64: {torch.equal(f32, fk)}")
+    return margin32, margin64, flush_ms, f32_ms
+
+
+def cli_json(argv) -> tuple[dict, float]:
+    """``qtpu_torch.cli.main(argv)`` in this process; its JSON output and
+    its wall time in seconds."""
+    import contextlib
+    import io
+    from qtpu_torch import cli
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    dt = time.perf_counter() - t
+    assert rc == 0, f"cli {argv[-1]} exited {rc}"
+    return json.loads(buf.getvalue()), dt
+
+
+def chain_sets(windows) -> list:
+    """Phase 8's chain settings as CLI --set overrides."""
+    sets = {"chain.pipeline.n": 4096, "chain.pipeline.family": '"mixed"',
+            "chain.pipeline.alg": '"minsum"',
+            "chain.pipeline.blocks_per_window": 64,
+            "chain.pipeline.stream_capacity_bits": 1 << 25,
+            "chain.window_s": CHAIN_SOURCE["window_s"],
+            "chain.sift_batch_frames": 8, "num_windows": windows,
+            **{f"source.{k}": v for k, v in CHAIN_SOURCE.items()}}
+    return [a for k, v in sets.items() for a in ("--set", f"{k}={v}")]
+
+
+def cli_tcp_phase(windows, timeout):
+    """``python -m qtpu_torch.cli ... alice`` and ``... bob`` as two
+    processes on this card over 127.0.0.1 with channel authentication;
+    returns their JSON outputs and the wall time."""
+    import os
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    base = [sys.executable, "-m", "qtpu_torch.cli", *chain_sets(windows)]
+    auth = ["--auth-seed", "0xC0FFEE"]
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    procs = {}
+    try:
+        for party in ("alice", "bob"):
+            procs[party] = subprocess.Popen(
+                [*base, "--set", f'metrics_path="{out_dir}/{party}.jsonl"',
+                 party, f"127.0.0.1:{port}", *auth],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        outs = {}
+        for party, proc in procs.items():
+            out, err = proc.communicate(timeout=timeout)
+            assert proc.returncode == 0, \
+                f"cli {party} exited {proc.returncode}: {err[-2000:]}"
+            outs[party] = json.loads(out)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs, time.perf_counter() - t
+
+
 def main() -> int:
     try:
         import torch
@@ -307,7 +454,7 @@ def main() -> int:
     from qtpu_torch.ldpc import cuda_bp
     from qtpu_torch.ldpc.codes import make_rate_ladder, make_regular_code
     from qtpu_torch.pipeline import PipelineConfig, production_config
-    from qtpu_torch.window_programs import toeplitz_margin
+    from qtpu_torch.pa import toeplitz_margin
 
     assert "jax" not in sys.modules
     dev = torch.device("cuda", 0)
@@ -461,17 +608,80 @@ def main() -> int:
         say(f"parity {alg}: cpu == cuda over {len(c[4])} windows, "
             f"{c[0].size} key bits, ledgers and metrics equal")
 
+    # 10. stream PA at the production flush shape
+    # (the rung whose flush hashes the most bits: the largest m at N = 2^25)
+    r_st = max(range(len(ladder.steps)), key=lambda i: probe.programs(i).l_max)
+    stream_pa_phase(dev, probe.payload_per_block(r_st),
+                    probe.programs(r_st).l_max)
+
+    # 11. the stream-PA production session
+    st_cfg = production_config(pa_mode="stream")
+    a_src, b_src = bsc_on_card(
+        dev, (STREAM_WINDOWS + 4) * st_cfg.n * st_cfg.blocks_per_window, 12)
+    reset_launches()
+    alice, bob, timed = run_session(st_cfg, a_src, b_src, dev,
+                                    STREAM_WINDOWS, feed_chunk=1 << 23)
+    st_launches = read_launches()
+    check_session("stream-pa session", alice, bob, timed, st_launches,
+                  "bp_layered")
+    key = bob.final_key_bits()
+    assert bob._stream_flushes >= 2, f"{bob._stream_flushes} stream flushes"
+    for party in (alice, bob):
+        assert party.ledger.final_bits == key.size, \
+            "stream-pa: ledger final_bits != emitted key bits"
+    assert all(b < 0 for _, b in bob.final_key_index)
+    say(f"stream-pa session: {bob._stream_flushes} flushes of "
+        f"{st_cfg.pa_stream_windows} windows, ledger final_bits == key bits "
+        f"== {key.size}")
+    del alice, bob, a_src, b_src
+
+    # 12. the CLI on the card
+    reset_launches()
+    log_dir = ROOT / "build" / "chip_smoke"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    demo, demo_s = cli_json([*chain_sets(DEMO_WINDOWS), "--set",
+                             f'metrics_path="{log_dir}/demo.jsonl"', "demo"])
+    demo_launches = read_launches()
+    assert demo["keys_identical"] and demo["final_key_bits"] > 0, demo
+    assert demo["device"].startswith("cuda"), demo["device"]
+    assert demo_launches["bp_flooding"] > 0, "cli demo never ran bp_flooding"
+    say(f"cli demo: {DEMO_WINDOWS} windows in {demo_s:.1f} s, "
+        f"{demo['final_key_bits']} identical key bits, "
+        f"{demo['final_bits_per_s_wallclock']} final bits/s wall clock, "
+        f"ledger {demo['ledger']}, launches={demo_launches}")
+    reset_launches()
+    fer, fer_s = cli_json(["--set", "chain.pipeline.n=4096", "fer", "--rung",
+                           "1", "--qber", "0.03", "--blocks", "1024"])
+    fer_launches = read_launches()
+    assert fer_launches["bp_flooding"] > 0, "cli fer never ran bp_flooding"
+    assert 0.0 <= fer["fer"] <= 0.05, fer
+    say(f"cli fer: {fer} in {fer_s:.2f} s, launches={fer_launches}")
+    outs, tcp_s = cli_tcp_phase(TCP_WINDOWS, timeout=400)
+    a, b = outs["alice"], outs["bob"]
+    assert a["key_digest"] == b["key_digest"] != "empty", (a, b)
+    assert a["ledger"] == b["ledger"] and a["windows"] == b["windows"]
+    assert b["ledger"]["auth_bits"] > 0
+    assert b["ledger"]["final_bits"] == b["final_key_bits"] > 0
+    say(f"cli alice/bob over tcp: {TCP_WINDOWS} simulation windows, "
+        f"{b['windows']} EC windows, digest {b['key_digest']} on both, "
+        f"{b['final_key_bits']} key bits, auth_bits "
+        f"{b['ledger']['auth_bits']}, {tcp_s:.1f} s for both processes")
+
     say(json.dumps({"kernels": [{
         "name": "bp_layered", "route": "cuda",
         "source": "qtpu_torch/csrc/bp_layered.cu",
         "replaces": "qtpu/ldpc/pallas_bp.py:168",
-        "launches": prod["bp_layered"], "max_abs_err": float(err),
+        "launches": prod["bp_layered"],
+        "launches_stream_pa_session": st_launches["bp_layered"],
+        "max_abs_err": float(err),
         "ms": round(ms, 4), "plain_ms": round(plain_ms, 2)}, {
         "name": "bp_flooding", "route": "cuda",
         "source": "qtpu_torch/csrc/bp_flooding.cu",
         "replaces": "qtpu/ldpc/pallas_bp.py:262",
         "launches": chain_launches["bp_flooding"],
         "launches_minsum_session": ms_launches["bp_flooding"],
+        "launches_cli_demo": demo_launches["bp_flooding"],
+        "launches_cli_fer": fer_launches["bp_flooding"],
         "max_abs_err": float(f_err),
         "ms": round(f_ms, 4), "plain_ms": round(f_plain_ms, 2)}]}))
     say(nvidia_smi())

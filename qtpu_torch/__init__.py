@@ -7,14 +7,21 @@ and takes an explicit ``device`` wherever it allocates.  ``qtpu`` stays the
 reference: on identical input the port gives the same syndromes, decoded
 bits, hashes, final keys and ledgers.
 
-Ported so far: the events -> key chain (``chain``: simulated detector
+Ported so far: the entry point ``python -m qtpu_torch.cli`` (``demo``, the
+TCP parties ``alice``/``bob``, ``fer``, ``calibrate``, ``cascade``; takes
+``--device``), the events -> key chain (``chain``: simulated detector
 events from ``channel``, sifting in ``sift``) and the two-party per-window
-reconciliation session (``pipeline``) with everything it runs: the protocol
-modules (``framing``, ``prng``, ``messages``, ``link``, ``qber``,
-``accounting``, ``channel``, ``ldpc.codes``, ``ldpc.designed``,
-``ldpc.calibrate`` — numpy copies of the reference's, since the machine
-with the card has no JAX), the threefry protocol PRNG (``random``), the
-device stream (``stream``), the window programs (``window_programs``), the
+reconciliation session (``pipeline``, per-block and stream privacy
+amplification) with everything it runs: the protocol and tooling modules
+(``framing``, ``prng``, ``messages``, ``link``, ``qber``, ``accounting``,
+``channel``, ``auth``, ``keystore``, ``config``, ``ldpc.codes``,
+``ldpc.designed``, ``ldpc.cascade`` and the calibration tables — numpy
+copies of the reference's, since the machine with the card has no JAX),
+``metrics`` (torch.profiler traces), the native C++ runtime (``runtime``:
+TCP transport and event codec, built with ``c++`` at first use), the
+threefry protocol PRNG (``random``), the device stream (``stream``), the
+Toeplitz hashes (``pa``, torch.fft), the window programs
+(``window_programs``), the FER measuring tools (``ldpc.calibrate``), the
 syndrome encoder (``ldpc.encode``) and the layered and flooding min-sum
 decoders: plain PyTorch (``ldpc.decode``) and the Hopper kernels
 (``ldpc.cuda_bp`` + ``csrc/bp_layered.cu``, ``csrc/bp_flooding.cu``).

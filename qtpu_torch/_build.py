@@ -72,7 +72,11 @@ def build(*names: str) -> list[Path]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {src.name}:\n{stdout}{stderr}")
             continue
-        log.write_text(stdout + stderr)
+        # Another process may build the same library at the same moment:
+        # both write their own temporary files and rename them into place.
+        log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+        log_tmp.write_text(stdout + stderr)
+        os.replace(log_tmp, log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -1,16 +1,194 @@
-"""Frozen rate-ladder calibration tables (measured per-rung QBER ceilings).
+"""Rate-ladder calibration: measured per-rung QBER ceilings.
 
-The three tables of ``qtpu/ldpc/calibrate.py``, copied verbatim so that
-``make_rate_ladder`` attaches the same ceilings in both packages.  The
-measuring tools (``measure_fer``, ``calibrate_ladder``, ...) are not ported
-yet; the ceilings are properties of the codes and the decoder's algorithm,
-not of the device that measured them.
+Counterpart of ``qtpu/ldpc/calibrate.py``: for each ladder rung, measure
+the frame-error rate on simulated BSC batches and record the largest QBER
+whose FER stays under a target; ``RateLadder.select`` then picks the
+highest rung whose ceiling admits the estimate.  The measuring tools decode
+through the sessions' decoder choice (``window_programs._pick_decoder``):
+the Hopper kernels on a CUDA device, their plain PyTorch versions on the
+CPU; the error flags are reduced on the device, so only the FER and the
+mean iteration count cross to the host.  Sum-product raises
+NotImplementedError, as in the sessions.
+
+Run ``python -m qtpu_torch.ldpc.calibrate [--device cuda] [spec ...]`` to
+(re)produce the tables; the frozen results below (copies of the
+reference's, so ``make_rate_ladder`` attaches the same ceilings in both
+packages) are properties of the codes and the decoder's algorithm, not of
+the device that measured them.
 """
 
 from __future__ import annotations
 
-__all__ = ["DEFAULT_CALIBRATION", "DEFAULT_SHORT_CALIBRATION",
-           "FINE_CALIBRATION"]
+import numpy as np
+import torch
+
+from qtpu_torch.ldpc.codes import RateLadder, RateStep, make_rate_ladder
+from qtpu_torch.ldpc.decode import BIG_LLR
+from qtpu_torch.ldpc.encode import make_batch_encoder
+
+__all__ = ["measure_fer", "calibrate_ladder", "calibrate_short",
+           "ceiling_bisect", "SHORT_FRACS", "DEFAULT_CALIBRATION",
+           "DEFAULT_SHORT_CALIBRATION", "FINE_CALIBRATION"]
+
+
+def _positions(step: RateStep):
+    z, nb = step.code.z, step.code.nb
+    special = set(step.punct_cols) | set(step.short_cols)
+    def expand(cs):
+        cs = np.asarray(sorted(cs), np.int32)
+        if cs.size == 0:
+            return np.zeros(0, np.int64)
+        return (cs[:, None] * z + np.arange(z)[None, :]).reshape(-1)
+    return (expand([c for c in range(nb) if c not in special]),
+            expand(step.punct_cols), expand(step.short_cols))
+
+
+def measure_fer(step: RateStep, qber: float, blocks: int = 256, seed: int = 0,
+                max_iters: int = 60, alg: str = "minsum",
+                extra_short_bits: int = 0, alpha: float = 0.8125,
+                device="cpu", _cache: dict = {}) -> tuple[float, float]:
+    """Simulate `blocks` reconciliations at the given true QBER on
+    ``device``.
+
+    Returns (frame error rate, mean BP iterations).  A frame errs if the
+    decoded payload differs from Alice's payload anywhere (verification-hash
+    failures in the real pipeline).  The inputs are the reference's, drawn
+    from ``seed`` with numpy, so both packages measure the same batch.
+
+    extra_short_bits: payload positions additionally pinned to known values
+    (LLR ±BIG) — the fine rate-adaptation mechanism; errors are counted on
+    the remaining (true payload) positions only.
+    """
+    from qtpu_torch.window_programs import _pick_decoder
+    device = torch.device(device)
+    code = step.code
+    ck = (id(step.code), max_iters, alg, alpha)
+    if ck not in _cache:
+        _cache[ck] = (make_batch_encoder(code),
+                      _pick_decoder(code, max_iters, alg, alpha))
+    enc, dec = _cache[ck]
+    pay, pun, sho = _positions(step)
+    rng = np.random.default_rng(seed)
+    if extra_short_bits:
+        sel = rng.choice(pay.size, size=extra_short_bits, replace=False)
+        mask = np.ones(pay.size, bool)
+        mask[sel] = False
+        xsho, pay = pay[~mask], pay[mask]
+        sho = np.concatenate([sho, xsho])
+    B, n = blocks, code.n
+    x = rng.integers(0, 2, (B, n)).astype(np.uint8)       # incl punct+short fill
+    x_dev = torch.from_numpy(x).to(device)
+    syn = enc(x_dev).contiguous()
+    noise = (rng.random((B, pay.size)) < qber).astype(np.uint8)
+    y_pay = x[:, pay] ^ noise
+    mag = np.float32(np.log((1.0 - qber) / qber))
+    llr = np.zeros((B, n), np.float32)
+    llr[:, pay] = np.where(y_pay.astype(bool), -mag, mag)
+    if sho.size:
+        llr[:, sho] = np.where(x[:, sho].astype(bool), -BIG_LLR, BIG_LLR)
+    res = dec(torch.from_numpy(llr).to(device), syn)
+    pay_dev = torch.from_numpy(pay).to(device)
+    errs = (res.bits[:, pay_dev] != x_dev[:, pay_dev]).any(dim=1)
+    stats = torch.stack([errs.to(torch.float64).mean(),
+                         res.iterations.to(torch.float64).mean()]).cpu()
+    return float(stats[0]), float(stats[1])
+
+
+def calibrate_ladder(ladder: RateLadder, fer_target: float = 0.05,
+                     blocks: int = 256, qber_grid=None,
+                     max_iters: int = 60, alg: str = "minsum",
+                     verbose: bool = False, device="cpu") -> tuple[float, ...]:
+    """Largest grid QBER per rung with FER <= fer_target (0.0 if none)."""
+    if qber_grid is None:
+        qber_grid = [x / 400 for x in range(1, 45)]  # 0.25% .. 11%
+    out = []
+    for step in ladder.steps:
+        best = 0.0
+        for q in qber_grid:
+            fer, iters = measure_fer(step, q, blocks, seed=int(q * 1e6),
+                                     max_iters=max_iters, alg=alg,
+                                     device=device)
+            if fer <= fer_target:
+                best = q
+            else:
+                if verbose:
+                    print(f"  {step.name}: q={q:.4f} FER={fer:.3f} iters={iters:.1f} -> ceiling {best:.4f}")
+                break
+        if verbose:
+            print(f"{step.name}: max_qber={best:.4f}")
+        out.append(best)
+    return tuple(out)
+
+
+def ceiling_bisect(step: RateStep, lo: float, hi: float,
+                   fer_target: float = 0.05, blocks: int = 256,
+                   tol: float = 5e-4, max_iters: int = 60,
+                   alg: str = "layered", extra_short_bits: int = 0,
+                   seed_base: int = 0, device="cpu") -> float:
+    """Largest QBER with FER <= target, by bisection to ``tol``.  Two
+    measurements at the same q use different seeds, so a noisy FER near the
+    waterfall bisects to the conservative side on average."""
+    def fer(q: float) -> float:
+        f, _ = measure_fer(step, q, blocks, seed=seed_base + int(q * 4e6),
+                           max_iters=max_iters, alg=alg,
+                           extra_short_bits=extra_short_bits, device=device)
+        return f
+    if fer(lo) > fer_target:
+        return 0.0
+    if fer(hi) <= fer_target:
+        return hi
+    while hi - lo > tol:
+        mid = 0.5 * (lo + hi)
+        if fer(mid) <= fer_target:
+            lo = mid
+        else:
+            hi = mid
+    return round(lo, 5)
+
+
+SHORT_FRACS = (0.0, 0.05, 0.10, 0.15, 0.20, 0.25)
+
+
+def calibrate_short(ladder: RateLadder, fracs=SHORT_FRACS,
+                    fer_target: float = 0.05, blocks: int = 256,
+                    qber_grid=None, max_iters: int = 60,
+                    alg: str = "minsum", verbose: bool = False, device="cpu"
+                    ) -> tuple[tuple[float, ...], tuple[tuple[float, ...], ...]]:
+    """Ceiling-vs-extra-shortening curves for fine rate adaptation.
+
+    For each rung and each extra-shortening fraction (of n), the largest grid
+    QBER with FER <= fer_target.  Returns (fracs, per-rung ceiling tuples) in
+    the ``RateLadder.short_grid/short_ceilings`` format.  Curves are made
+    monotone non-decreasing (shortening only ever strengthens the code;
+    measurement noise is clamped the safe way, downward).
+    """
+    if qber_grid is None:
+        qber_grid = [x / 400 for x in range(1, 61)]  # 0.25% .. 15%
+    n = ladder.steps[0].code.n
+    out = []
+    for step in ladder.steps:
+        curve = []
+        start = 0  # ceilings are monotone: resume the grid walk where the
+        for frac in fracs:   # previous fraction's ceiling stopped
+            s = int(frac * n)
+            best = qber_grid[start - 1] if start else 0.0
+            for gi in range(start, len(qber_grid)):
+                q = qber_grid[gi]
+                fer, _ = measure_fer(step, q, blocks, seed=int(q * 1e6) + s,
+                                     max_iters=max_iters, alg=alg,
+                                     extra_short_bits=s, device=device)
+                if fer <= fer_target:
+                    best, start = q, gi + 1
+                else:
+                    break
+            curve.append(best)
+            if verbose:
+                print(f"  {step.name} short={frac:.2f}: ceiling {best:.4f}")
+        # Enforce monotone non-decreasing the safe way.
+        for k in range(1, len(curve)):
+            curve[k] = max(curve[k], curve[k - 1])
+        out.append(tuple(curve))
+    return tuple(fracs), tuple(out)
 
 
 # Measured with blocks=256, fer_target=0.05, max_iters=60, grid step 0.25% —
@@ -206,3 +384,41 @@ FINE_CALIBRATION: dict[tuple[int, int, str, str], dict] = {
     },
 }
 
+
+def main(argv=None) -> None:
+    import argparse
+    p = argparse.ArgumentParser(prog="qtpu_torch.ldpc.calibrate")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to decode on (default cuda)")
+    p.add_argument("specs", nargs="*", default=["minsum:regular"],
+                   help="alg:family[:n...] or short:alg:family[:n...]")
+    a = p.parse_args(argv)
+    if torch.device(a.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("calibrate: CUDA is not available (pass --device cpu "
+                         "to measure on the CPU)")
+    for spec in a.specs:
+        parts = spec.split(":")
+        if parts[0] == "short":
+            alg = parts[1] if len(parts) > 1 else "layered"
+            family = parts[2] if len(parts) > 2 else "mixed"
+            ns = [int(x) for x in parts[3:]] or [4096]
+            for n in ns:
+                ladder = make_rate_ladder(n, family=family, alg=alg)
+                print(f"short-calibration n={n} alg={alg} family={family}:")
+                fracs, curves = calibrate_short(ladder, verbose=True, alg=alg,
+                                                device=a.device)
+                print(f"  ({n}, 3, {alg!r}, {family!r}): ({fracs}, {curves}),")
+            continue
+        alg = parts[0]
+        family = parts[1] if len(parts) > 1 else "regular"
+        ns = [int(x) for x in parts[2:]] or [1024, 4096]
+        for n in ns:
+            ladder = make_rate_ladder(n, family=family, alg=alg)
+            print(f"n={n} alg={alg} family={family}:")
+            ceilings = calibrate_ladder(ladder, verbose=True, alg=alg,
+                                        device=a.device)
+            print(f"  ({n}, 3, {alg!r}, {family!r}): {ceilings},")
+
+
+if __name__ == "__main__":
+    main()

@@ -23,8 +23,8 @@ may differ.  The per-window protocol is:
 Device→host fetches (the per-window stats, the packed final keys) start as
 non-blocking copies into pinned host memory with a recorded CUDA event, so
 ``BobSession.flush(block=False)`` polls ``event.query()`` instead of
-stalling.  Not ported here (each raises NotImplementedError): the stream-PA
-mode (``pa_mode="stream"``) and the device mesh.
+stalling.  The device mesh is not ported here (``BobSession(mesh=...)``
+raises NotImplementedError).
 
 Key protocol changes vs round 2 (both parties must agree — this is the
 wire-compatible v2):
@@ -63,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from qtpu_torch import pa as pa_mod
 from qtpu_torch import prng
 from qtpu_torch.accounting import Ledger
 from qtpu_torch.ldpc.codes import RateLadder, make_rate_ladder
@@ -191,9 +192,9 @@ class PipelineConfig:
     # the device's decode of window w.
     max_inflight_windows: int = 2
     # Privacy amplification mode: "per_block" hashes each block separately
-    # (batched FFT, fully device-resident).  The reference's "stream" mode
-    # (one Toeplitz seed spanning block and window boundaries) is not ported
-    # yet: sessions raise NotImplementedError for it.
+    # (batched FFT, fully device-resident); "stream" accumulates the
+    # verified payload stream and hashes it with ONE Toeplitz seed spanning
+    # block and window boundaries every pa_stream_windows windows.
     pa_mode: str = "per_block"
     pa_stream_windows: int = 4
     # Device stream arena capacity.  Growth beyond it reallocates the arena
@@ -256,10 +257,6 @@ class _Party:
 
     def __init__(self, config: PipelineConfig, session_seed: int,
                  device="cpu"):
-        if config.pa_mode != "per_block":
-            raise NotImplementedError(
-                f"pa_mode={config.pa_mode!r} is not ported to qtpu_torch yet "
-                f"(only per_block PA is); use qtpu for stream PA")
         self.config = config
         self.device = torch.device(device)
         self.ladder: RateLadder = make_rate_ladder(
@@ -298,6 +295,14 @@ class _Party:
         B = config.blocks_per_window
         self.k_max = max(1, 1 << int(np.ceil(np.log2(
             max(1, -(-config.qber_test_bits // B))))))
+        # Streaming-PA accumulator (pa_mode="stream"), keyed by WINDOW ID:
+        # finalization order can differ between the parties (resurrected or
+        # retried windows finalize late on one side only), so the stream
+        # hash must cover windows by id range, not by local finalize order.
+        self._stream_buf: dict[int, tuple[torch.Tensor, int]] = {}
+        self._stream_empty: set[int] = set()   # settled with no contribution
+        self._stream_cursor = 0                # next window id to flush
+        self._stream_flushes = 0
         # Static per-step position arrays (variable index space).
         self._step_positions: dict[int, dict] = {
             idx: self._positions_for(step)
@@ -523,6 +528,90 @@ class _Party:
             return np.zeros(0, np.uint8)
         return np.concatenate(self._final_host)
 
+    # -- streaming PA (pa_mode="stream") ---------------------------------
+
+    def _stream_accumulate(self, payload_dev, ok: np.ndarray, rate_index: int,
+                           k_pb: int, window_id: int, short_bits: int,
+                           extra_leak: np.ndarray) -> int:
+        """Record this window's verified payload (kept on the device) and
+        net-length contribution under its WINDOW ID, then flush any
+        fully-settled id range.  Returns final bits emitted (0 between
+        flushes).
+
+        Ordering contract: flush k always covers window ids [k*S, (k+1)*S)
+        in id order on BOTH parties, regardless of each side's local
+        finalize order — a range flushes only once every id in it is
+        settled (finalized here, or aborted with no pending resurrection).
+        A window whose limbo stash outlives the history horizon
+        un-resurrected is settled as empty; if the peer finalized it, the
+        two stream hashes diverge — the same at-least-once horizon bound
+        every other recovery path in this file carries."""
+        step = self.ladder.steps[rate_index]
+        B = self.config.blocks_per_window
+        pay = payload_dev[torch.from_numpy(ok).to(payload_dev.device)]
+        okc = int(ok.sum())
+        P = self.payload_per_block(rate_index)
+        # Conservative leakage: every disclosed bit of the window counts,
+        # including failed blocks' syndromes/retries; extra-shortened
+        # positions of surviving blocks are publicly derivable fill.
+        leak = (step.leaked_bits() * B + (k_pb + short_bits) * B
+                + self.config.verify_hash_bits * B
+                + int(extra_leak.sum()))
+        self._stream_buf[window_id] = (pay.reshape(-1), okc * P - leak)
+        return self._try_stream_flush()
+
+    def _stream_settled(self, w: int) -> bool:
+        if (w < self._stream_cursor or w in self._stream_buf
+                or w in self._stream_empty):
+            return True
+        return w in self._aborted and w not in self._limbo
+
+    def _try_stream_flush(self) -> int:
+        if self.config.pa_mode != "stream":
+            return 0
+        S = self.config.pa_stream_windows
+        total = 0
+        while all(self._stream_settled(w) for w in
+                  range(self._stream_cursor, self._stream_cursor + S)):
+            total += self._flush_stream_range(self._stream_cursor,
+                                              self._stream_cursor + S)
+        return total
+
+    def _flush_stream_range(self, lo: int, hi: int) -> int:
+        """Hash windows [lo, hi)'s accumulated stream (in window-id order)
+        with one Toeplitz seed, on the session's device."""
+        parts, net = [], 0
+        for w in range(lo, hi):
+            pay, n = self._stream_buf.pop(w, (None, 0))
+            if pay is not None and pay.numel():
+                parts.append(pay)
+            net += n
+        self._stream_empty -= set(range(lo, hi))
+        self._stream_cursor = hi
+        size = sum(int(p.numel()) for p in parts)
+        flush_idx = self._stream_flushes
+        self._stream_flushes += 1
+        m = max(0, net - self.config.margin_bits)
+        if m == 0 or size == 0:
+            return 0
+        # The pad length is protocol configuration (both parties hash the
+        # identical padded stream): the next power of two, at least 2^16.
+        n_pad = max(1 << 16, 1 << (size - 1).bit_length())
+        padded = torch.zeros(n_pad, dtype=torch.uint8, device=self.device)
+        padded[:size] = torch.cat(parts)
+        key = prng.derive(self.session, "pa-stream", flush_idx)
+        t = torch.from_numpy(prng.random_bits(key, (m + n_pad - 1,)))
+        # float64 in at most two segments: a segment's counts reach its
+        # length (2^24 at the production flush), far inside float64's
+        # exact-rounding range, and two segments run the fewest FFT points
+        # (the reference's float32 in 2^16-bit segments runs ~256x more).
+        fk = pa_mod.stream_toeplitz(t.to(self.device), padded, m,
+                                    segment=max(1 << 16, n_pad // 2),
+                                    precision=torch.float64)
+        self._final_host.append(fk.cpu().numpy())
+        self.final_key_index.append((hi - 1, -1 - flush_idx))
+        return m
+
     # -- stream management ----------------------------------------------
 
     def push_sifted(self, bits, n: int | None = None) -> None:
@@ -591,7 +680,14 @@ class _Party:
         floor = self._history_floor()
         for d in (self._aborted, self._completed, self._limbo):
             for old in [k for k in d if k < floor]:
+                # A pruned abort record can no longer resurrect: settle the
+                # window as empty for the stream-PA flush gate (no-op in
+                # per_block mode — the set is only read by _stream_settled).
+                if d is self._aborted and old not in self._stream_buf:
+                    self._stream_empty.add(old)
                 del d[old]
+        self._stream_empty = {w for w in self._stream_empty
+                              if w >= self._stream_cursor}
 
     def _record_completed(self, window_id: int, st: dict) -> None:
         self._completed[window_id] = (st.get("consumed", 0),
@@ -674,6 +770,15 @@ class _Party:
             # lost or reordered) settles that window alone — jumping the
             # watermark would wrongly retire every live window below it.
             self.window_id = max(self.window_id, w + 1)
+        # An abort can settle the tail of a stream-PA flush range with no
+        # finalize following it — re-check the flush gate here.
+        self._credit_stream_flush()
+
+    def _credit_stream_flush(self) -> None:
+        """Flush what an abort settled and count its key in the ledger (the
+        reference drops this credit, so a range settled by an abort on one
+        party and by a finalize on the other left the ledgers unequal)."""
+        self.ledger.add(final_bits=self._try_stream_flush())
 
     def abort_window(self, window_id: int, reason: str = "timeout") -> None:
         """Abandon an in-flight window (lost message / timeout — SURVEY.md
@@ -692,6 +797,9 @@ class _Party:
             self._limbo[window_id] = st
         self.window_id = max(self.window_id, window_id + 1)
         self._send_abort(window_id, reason)
+        # Settling may unblock a stream-PA flush range (the limbo stash —
+        # added ABOVE — keeps a resurrectable window from settling early).
+        self._credit_stream_flush()
 
 
 class AliceSession(_Party):
@@ -857,8 +965,12 @@ class AliceSession(_Party):
             return
 
         per_block_stream = P
-        final = self._privacy_amplify(st["payload_dev"], ok, r, k_pb, w,
-                                      s, extra_leak=extra)
+        if self.config.pa_mode == "stream":
+            final = self._stream_accumulate(st["payload_dev"], ok, r, k_pb,
+                                            w, s, extra)
+        else:
+            final = self._privacy_amplify(st["payload_dev"], ok, r, k_pb, w,
+                                          s, extra_leak=extra)
         self.ledger.add(reconciled_bits=int(ok.sum()) * per_block_stream,
                         discarded_bits=int((~ok).sum()) * per_block_stream,
                         final_bits=final, blocks_ok=int(ok.sum()),
@@ -1278,8 +1390,12 @@ class BobSession(_Party):
         q = st["qber"]
         extra = st["extra_leak"]
         per_block_stream = self.payload_per_block(r)
-        final = self._privacy_amplify(st["hat_dev"], ok, r, k_pb, w, s,
-                                      extra_leak=extra)
+        if self.config.pa_mode == "stream":
+            final = self._stream_accumulate(st["hat_dev"], ok, r, k_pb, w,
+                                            s, extra)
+        else:
+            final = self._privacy_amplify(st["hat_dev"], ok, r, k_pb, w, s,
+                                          extra_leak=extra)
         self.ledger.add(reconciled_bits=int(ok.sum()) * per_block_stream,
                         discarded_bits=int((~ok).sum()) * per_block_stream,
                         final_bits=final, blocks_ok=int(ok.sum()),

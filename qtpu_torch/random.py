@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["key_from_data", "threefry2x32", "fold_in", "split", "bits32",
-           "randint", "seed_rows"]
+           "uniform", "randint", "seed_rows"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -88,6 +88,13 @@ def bits32(key: torch.Tensor, width: int) -> torch.Tensor:
     count = torch.arange(width, dtype=torch.int64, device=key.device)
     x0, x1 = _hash(key, count)
     return x0 ^ x1
+
+
+def uniform(key: torch.Tensor, width: int) -> torch.Tensor:
+    """``jax.random.uniform(key, (width,))`` (float32 in [0, 1)): the top 23
+    bits of each word as a float32 mantissa in [1, 2), minus one."""
+    mant = (bits32(key, width) >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
 
 
 def randint(key: torch.Tensor, span: int) -> torch.Tensor:

@@ -40,12 +40,13 @@ import torch
 
 from qtpu_torch import random as tr
 from qtpu_torch.ldpc.codes import QCCode
+from qtpu_torch.pa import _toeplitz_hash
 from qtpu_torch.ldpc.cuda_bp import make_cuda_decoder
 from qtpu_torch.ldpc.decode import BIG_LLR
 from qtpu_torch.ldpc.encode import make_batch_encoder
 
 __all__ = ["WindowPrograms", "make_window_programs", "make_header",
-           "choose_affine", "toeplitz_margin"]
+           "choose_affine"]
 
 HEADER_WORDS = 12
 
@@ -88,38 +89,6 @@ def make_header(cursor: int, short_bits: int, wkey_data: np.ndarray,
     return h
 
 
-def _toeplitz_conv(t_bits: torch.Tensor, x_bits: torch.Tensor, m: int):
-    """Rows of the linear convolution t * x over the extracted segment
-    [n-1, n-1+m), as float32 values that are integers up to FFT error.
-
-    A cyclic convolution of length L aliases linear index k with k+L; the
-    linear convolution's support ends at m+2n-3, so the segment is alias-
-    free whenever L >= m+n-1."""
-    n = x_bits.shape[-1]
-    L = 1 << (m + n - 2).bit_length()
-    tf = torch.fft.rfft(t_bits.to(torch.float32), L, dim=-1)
-    xf = torch.fft.rfft(x_bits.to(torch.float32), L, dim=-1)
-    conv = torch.fft.irfft(tf * xf, L, dim=-1)
-    return conv[..., n - 1:n - 1 + m]
-
-
-def _toeplitz_hash(t_bits: torch.Tensor, x_bits: torch.Tensor, m: int):
-    """Batched FFT Toeplitz hash ((B, n) x (B, m+n-1) -> (B, m) uint8).
-    Exact while every convolution value lies within 0.25 of its integer
-    (``toeplitz_margin``): the output is then the exact GF(2) product,
-    whatever FFT computed it."""
-    seg = _toeplitz_conv(t_bits, x_bits, m)
-    return (torch.round(seg).to(torch.int32) & 1).to(torch.uint8)
-
-
-def toeplitz_margin(t_bits, x_bits, m: int) -> float:
-    """max |conv − round(conv)| of the float32 FFT path over the extracted
-    segment — the integer-exactness margin the 2-universal-hash security
-    property rides on.  Must stay well below 0.5 (< 0.25 is required)."""
-    seg = _toeplitz_conv(torch.as_tensor(t_bits), torch.as_tensor(x_bits), m)
-    return float((seg - torch.round(seg)).abs().max())
-
-
 class WindowPrograms(NamedTuple):
     alice: callable
     bob: callable
@@ -134,11 +103,12 @@ class WindowPrograms(NamedTuple):
     retry_bits: int  # retry disclosure bits per block
 
 
-def _pick_decoder(code: QCCode, max_iters: int, alg: str):
+def _pick_decoder(code: QCCode, max_iters: int, alg: str,
+                  alpha: float = 0.8125):
     """The decoder of ``alg`` ("layered" or flooding "minsum"): its Hopper
     kernel on CUDA tensors, its plain PyTorch version on CPU tensors.
     Sum-product raises NotImplementedError (no kernel in the reference)."""
-    return make_cuda_decoder(code, max_iters, alg=alg)
+    return make_cuda_decoder(code, max_iters, alpha=alpha, alg=alg)
 
 
 def _check_exact_matmul(x: torch.Tensor) -> None:

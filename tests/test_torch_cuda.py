@@ -207,3 +207,42 @@ def test_sift_on_card_matches_cpu(dev, sift_frames):
     raw = cpu[1][0]
     assert torch.equal(sift.splice(raw.to(dev), out_g[0][0, :k]).cpu(),
                        sift.splice(raw, out_c[0][0, :k]))
+
+
+def test_stream_toeplitz_card_matches_golden(dev):
+    from qtpu_torch import pa
+    rng = np.random.default_rng(0)
+    N, m = 2048, 300
+    x = rng.integers(0, 2, N).astype(np.uint8)
+    t = rng.integers(0, 2, m + N - 1).astype(np.uint8)
+    want = pa.toeplitz_hash_golden(t, x, m)
+    for precision in (torch.float32, torch.float64):
+        got = pa.stream_toeplitz(torch.from_numpy(t).to(dev),
+                                 torch.from_numpy(x).to(dev), m, segment=512,
+                                 precision=precision)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_stream_pa_session_card_matches_cpu(dev):
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 2, 60_000).astype(np.uint8)
+    b = a ^ (rng.random(60_000) < 0.02).astype(np.uint8)
+    cfg = PipelineConfig(n=1024, blocks_per_window=8, qber_test_bits=512,
+                         pa_mode="stream", pa_stream_windows=2,
+                         max_inflight_windows=1)
+    ca, cb = run_loopback(cfg, a, b, device="cpu")
+    ga, gb = run_loopback(cfg, a, b, device=dev)
+    key = cb.final_key_bits()
+    assert key.size > 0 and cb.ledger.final_bits == key.size
+    for s in (ca, ga, gb):
+        np.testing.assert_array_equal(s.final_key_bits(), key)
+    assert ga.ledger.as_dict() == cb.ledger.as_dict()
+
+
+def test_measure_fer_card_matches_cpu(dev):
+    from qtpu_torch.ldpc.calibrate import measure_fer
+    step = make_rate_ladder(4096, family="mixed", alg="minsum").steps[1]
+    before = cuda_bp.launches["bp_flooding"]
+    got = measure_fer(step, 0.05, blocks=64, seed=2, device=dev)
+    assert cuda_bp.launches["bp_flooding"] == before + 1
+    assert got == measure_fer(step, 0.05, blocks=64, seed=2, device="cpu")

@@ -26,6 +26,18 @@ DEVICE_LINES = {
         'return torch.tensor([getattr(ledger, f) for f in LEDGER_FIELDS], dtype=torch.int32)',
     },
     "messages.py": {'a = a.cpu() if hasattr(a, "cpu") else a'},
+    # The signed block index lets stream-PA records (-1 - flush_idx) pack.
+    "keystore.py": {
+        '_HEAD = struct.Struct("<IIII")',
+        '_HEAD = struct.Struct("<IIiI")  # signed block_index: stream-PA '
+        'records use -1 - flush_idx',
+    },
+    # jax.random.uniform on the host CPU -> the bit-exact threefry uniform.
+    "cascade.py": {
+        'with jax.default_device(jax.devices("cpu")[0]):',
+        'return np.asarray(jax.random.uniform(key, (n,)))',
+        'return random.uniform(random.key_from_data(key, "cpu"), n).numpy()',
+    },
 }
 PORT_ONLY_MARKER = "# Port-only additions"
 
@@ -38,7 +50,7 @@ def test_no_module_imports_jax():
         " 'qtpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 16, names\n"
+        "assert len(names) >= 29, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qtpu' or m.startswith('qtpu.')]\n"
         "assert not bad, bad\n")
@@ -55,7 +67,8 @@ def _is_import(line: str) -> bool:
 
 @pytest.mark.parametrize("rel", [
     "framing.py", "prng.py", "qber.py", "link.py", "messages.py",
-    "accounting.py", "channel.py", "ldpc/codes.py", "ldpc/designed.py"])
+    "accounting.py", "channel.py", "ldpc/codes.py", "ldpc/designed.py",
+    "auth.py", "keystore.py", "config.py", "ldpc/cascade.py"])
 def test_numpy_copy_matches_original(rel):
     orig = (ROOT / "qtpu" / rel).read_text().splitlines()
     port = (ROOT / "qtpu_torch" / rel).read_text()
@@ -73,8 +86,15 @@ def test_numpy_copy_matches_original(rel):
 
 
 def test_calibration_tables_match_original():
-    orig = (ROOT / "qtpu" / "ldpc" / "calibrate.py").read_text()
-    port = (ROOT / "qtpu_torch" / "ldpc" / "calibrate.py").read_text()
-    start = "# Measured with blocks=256"
-    block = orig[orig.index(start):orig.index("def main()")].rstrip()
-    assert port[port.index(start):].rstrip() == block
+    def tables(pkg):
+        text = (ROOT / pkg / "ldpc" / "calibrate.py").read_text()
+        return text[text.index("# Measured with blocks=256"):
+                    text.index("def main(")].rstrip()
+    assert tables("qtpu_torch") == tables("qtpu")
+
+
+@pytest.mark.parametrize("name", ["framing.cpp", "transferd.cpp"])
+def test_native_sources_are_byte_copies(name):
+    orig = ROOT / "qtpu" / "runtime" / "native" / name
+    port = ROOT / "qtpu_torch" / "runtime" / "native" / name
+    assert port.read_bytes() == orig.read_bytes()

@@ -31,8 +31,8 @@ from qtpu.pipeline import BobSession, PipelineConfig
 from qtpu.window_programs import make_header as j_make_header
 from qtpu.window_programs import make_window_programs as j_make_programs
 from qtpu_torch.ldpc.codes import code_from_reference
-from qtpu_torch.window_programs import (_toeplitz_hash, make_header,
-                                        make_window_programs, toeplitz_margin)
+from qtpu_torch.pa import _toeplitz_hash, toeplitz_margin
+from qtpu_torch.window_programs import make_header, make_window_programs
 
 B, MAX_ITERS, VH = 4, 60, 64
 
