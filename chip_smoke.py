@@ -44,7 +44,29 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     ``fer --rung 1 --qber 0.03 --blocks 1024`` at n = 4096 (the flooding
     kernel launched), and ``python -m qtpu_torch.cli ... alice`` / ``bob``
     as two processes on this card over 127.0.0.1 with channel
-    authentication (equal key digests and ledgers, auth_bits > 0).
+    authentication (equal key digests and ledgers, auth_bits > 0);
+13. sharded decode: ``qtpu_torch.parallel.make_sharded_decoder`` over a
+    mesh of 4 shards on this card — layered at phase 3's production rung
+    (B = 128) and flooding at phase 4's regular n = 4096 batch (B = 1024) —
+    equals one unsharded launch (bits, iterations, converged), launches its
+    kernel exactly 4 times per call, and 8 blocks of each equal the golden
+    model (``qtpu_torch.ldpc.golden``); both times;
+14. mesh session: production_config(max_inflight_windows=1), Alice
+    unsharded and Bob on a 4-shard mesh on this card, over BSC(3%) for 12
+    windows, against an unsharded pair on the same input — identical
+    non-empty keys, all four ledgers equal, every window's psum'd ledger
+    equal to its host metrics, >= 4 layered launches per window;
+15. mesh stream PA: at the production flush shape the 4- and 8-shard
+    float64 flush equals the unsharded one, and the reference's float32
+    sharded flush (each shard's L = N/4 or N/8 bits unsegmented) prints its
+    margin; then production_config(pa_mode="stream") with the mesh Bob for
+    8 windows (>= 2 flushes): identical keys, ledger.final_bits == the
+    emitted key bits;
+16. two processes: ``chip_smoke.py --mesh-worker RANK PORT`` twice on this
+    card, joined by ``init_distributed(backend="gloo")``, each owning 2 of
+    4 shards of Bob's program at phase 3's rung (B = 128): both psum'd
+    ledgers equal each other and the one-process 4-shard program's on the
+    same window.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -65,6 +87,8 @@ MINSUM_WINDOWS = 12
 CHAIN_WINDOWS = 16
 CHAIN_WARMUP = 3
 STREAM_WINDOWS = 8
+MESH_SHARDS = 4
+MESH_WINDOWS = 12
 DEMO_WINDOWS = 8
 TCP_WINDOWS = 6
 # benchmarks/config4_sifted_chain.py's source (BASELINE config 4).
@@ -253,16 +277,18 @@ def run_chain(cfg, dev, windows, warmup):
     return alice, bob, true, est, rate
 
 
-def run_session(cfg, alice_src, bob_src, device, windows, feed_chunk=None):
-    """Both parties on ``device`` over a direct link; the stream is fed in
-    chunks as the session consumes it.  Returns (alice, bob, timed): timed
-    is (elapsed s, windows Bob finalized in that time), from Bob's second
-    settled window until his ``windows``-th; the rest is drained untimed."""
+def run_session(cfg, alice_src, bob_src, device, windows, feed_chunk=None,
+                mesh=None):
+    """Both parties on ``device`` over a direct link (Bob on ``mesh`` when
+    given); the stream is fed in chunks as the session consumes it.
+    Returns (alice, bob, timed): timed is (elapsed s, windows Bob finalized
+    in that time), from Bob's second settled window until his
+    ``windows``-th; the rest is drained untimed."""
     from qtpu_torch.link import make_direct_pair
     from qtpu_torch.pipeline import AliceSession, BobSession, pump_sessions
     la, lb = make_direct_pair()
     alice = AliceSession(cfg, 0x5E55, la, device=device)
-    bob = BobSession(cfg, 0x5E55, lb, device=device)
+    bob = BobSession(cfg, 0x5E55, lb, device=device, mesh=mesh)
     chunk = feed_chunk or len(alice_src)
     state = {"off": 0}
 
@@ -432,6 +458,263 @@ def cli_tcp_phase(windows, timeout):
                 proc.kill()
                 proc.wait()
     return outs, time.perf_counter() - t
+
+
+def sharded_decode_phase(label, code, llr, syn, max_iters, alg, reps):
+    """Phase 13: the sharded decoder over MESH_SHARDS shards on the card
+    against one unsharded launch and the golden model.  Returns (launches
+    per sharded call, sharded ms, unsharded ms)."""
+    import numpy as np
+    import torch
+    from qtpu_torch.ldpc import golden
+    from qtpu_torch.ldpc.cuda_bp import KERNELS, launches, make_cuda_decoder
+    from qtpu_torch.parallel import make_mesh, make_sharded_decoder
+    dev = llr.device
+    sharded = make_sharded_decoder(code, make_mesh(devices=[dev] * MESH_SHARDS),
+                                   max_iters, alg)
+    single = make_cuda_decoder(code, max_iters, alg=alg)
+    name = KERNELS[alg]
+    torch.cuda.synchronize()
+    before = launches[name]
+    got = sharded(llr, syn)
+    torch.cuda.synchronize()
+    per_call = launches[name] - before
+    assert per_call == MESH_SHARDS, f"{label}: {per_call} launches per call"
+    ref = single(llr, syn)
+    for a, b, what in zip(got, ref, ("bits", "converged", "iterations")):
+        assert torch.equal(a, b), f"{label}: sharded {what} != unsharded"
+    B = llr.shape[0]
+    llr_h, syn_h = llr.cpu().numpy(), syn.cpu().numpy()
+    bits, conv, iters = (x.cpu().numpy() for x in got)
+    for b in (*range(4), *range(B - 4, B)):
+        g = golden.decode(code, llr_h[b], syn_h[b], max_iters=max_iters,
+                          alg=alg)
+        assert np.array_equal(g.bits.reshape(-1), bits[b]) and \
+            (g.iterations, g.converged) == (iters[b], conv[b]), \
+            f"{label}: block {b} differs from golden"
+    ms = time_cuda(lambda: sharded(llr, syn), reps)
+    ms1 = time_cuda(lambda: single(llr, syn), reps)
+    say(f"sharded {label}: {MESH_SHARDS} shards of {B // MESH_SHARDS} on "
+        f"{dev} == one launch of B={B} (bits, iterations, converged), "
+        f"{per_call} {name} launches per call, 8 blocks == golden; "
+        f"sharded_ms={ms:.3f} unsharded_ms={ms1:.3f}")
+    return per_call, ms, ms1
+
+
+def check_gled(bob):
+    """Every window's psum'd decode ledger equals its host metrics
+    (__graft_entry__.dryrun_multichip's check)."""
+    from qtpu_torch.accounting import LEDGER_FIELDS
+    idx = {f: i for i, f in enumerate(LEDGER_FIELDS)}
+    assert sorted(bob.gled_by_window) == sorted(m.window_id for m in bob.metrics)
+    for met in bob.metrics:
+        g = bob.gled_by_window[met.window_id]
+        assert g[idx["syndrome_bits"]] == met.leaked_syndrome
+        assert g[idx["verify_hash_bits"]] == met.leaked_hash
+        assert g[idx["qber_test_bits"]] == met.leaked_qber
+        assert g[idx["blocks_ok"]] + g[idx["blocks_failed"]] == met.blocks
+
+
+def mesh_session_phase(dev, cfg, windows, seed):
+    """Phase 14: Alice unsharded, Bob on a MESH_SHARDS mesh of ``dev``,
+    against an unsharded pair on the same input.  Returns the mesh run's
+    launches."""
+    import numpy as np
+    from qtpu_torch.parallel import make_mesh
+    a_src, b_src = bsc_on_card(
+        dev, (windows + 4) * cfg.n * cfg.blocks_per_window, seed)
+    reset_launches()
+    alice, bob, timed = run_session(
+        cfg, a_src, b_src, dev, windows, feed_chunk=1 << 23,
+        mesh=make_mesh(devices=[dev] * MESH_SHARDS))
+    launches = read_launches()
+    mets = check_session("mesh session", alice, bob, timed, launches,
+                         "bp_layered")
+    check_gled(bob)
+    assert launches["bp_layered"] >= MESH_SHARDS * len(mets), launches
+    alice1, bob1, timed1 = run_session(cfg, a_src, b_src, dev, windows,
+                                       feed_chunk=1 << 23)
+    key = bob.final_key_bits()
+    assert np.array_equal(bob1.final_key_bits(), key), \
+        "mesh session: keys differ from the unsharded run's"
+    assert (bob.ledger.as_dict() == alice1.ledger.as_dict()
+            == bob1.ledger.as_dict()), "mesh session: ledgers differ"
+    assert [m.as_dict() for m in mets] == [m.as_dict() for m in bob1.metrics]
+    say(f"mesh session: == the unsharded pair (keys, 4 ledgers, window "
+        f"metrics) over {len(mets)} windows; gled == host metrics in every "
+        f"window; unsharded window_ms="
+        f"{1e3 * timed1[0] / timed1[1]:.2f}")
+    return launches
+
+
+def reference_sharded_margin(t_bits, stream, m, shards):
+    """The reference's sharded float32 flush (qtpu/parallel.py:109-143):
+    each shard's whole slice of L = N / shards bits in one float32
+    convolution of the next power of two >= m + 2L - 2 points; the worst
+    distance of a count from its integer over every shard."""
+    import torch
+    N = stream.shape[0]
+    L = N // shards
+    need = m + 2 * L - 2
+    n_fft = 1 << (need - 1).bit_length()
+    worst = 0.0
+    for s in range(shards):
+        start = N - (s + 1) * L
+        tf = torch.fft.rfft(t_bits[start:start + m + L - 1].float(), n_fft)
+        xf = torch.fft.rfft(stream[s * L:(s + 1) * L].float(), n_fft)
+        c = torch.fft.irfft(tf * xf, n_fft)[L - 1:L - 1 + m]
+        worst = max(worst, float((c - torch.round(c)).abs().max()))
+        del tf, xf, c
+    return worst
+
+
+def sharded_flush_phase(dev, P, l_max):
+    """Phase 15, first half: phase 10's production flush sharded over 4
+    and 8 shards of the card (float64) against the unsharded flush, and the
+    reference's float32 sharded margin.  Returns the margins by shard
+    count."""
+    import torch
+    from qtpu_torch import pa, prng
+    from qtpu_torch.parallel import make_mesh, make_stream_pa
+    size = 4 * 128 * P
+    N = 1 << (size - 1).bit_length()
+    m = 4 * 128 * l_max
+    g = torch.Generator(device=dev).manual_seed(10)
+    stream = torch.zeros(N, dtype=torch.uint8, device=dev)
+    stream[:size] = torch.randint(0, 2, (size,), generator=g, device=dev,
+                                  dtype=torch.uint8)
+    t_dev = torch.from_numpy(prng.random_bits(
+        prng.derive(prng.root_key(1), "pa-stream", 0), (m + N - 1,))).to(dev)
+    fk = pa.stream_toeplitz(t_dev, stream, m, segment=N // 2,
+                            precision=torch.float64)
+    margins, times = {}, {}
+    for shards in (MESH_SHARDS, 2 * MESH_SHARDS):
+        flush = make_stream_pa(make_mesh(devices=[dev] * shards), N, m)
+        got = flush(t_dev, stream)
+        assert torch.equal(got, fk), f"{shards}-shard flush != unsharded"
+        times[shards] = time_cuda(lambda: flush(t_dev, stream), 1)
+        margins[shards] = reference_sharded_margin(t_dev, stream, m, shards)
+    one_ms = time_cuda(lambda: pa.stream_toeplitz(
+        t_dev, stream, m, segment=N // 2, precision=torch.float64), 1)
+    say(f"sharded stream pa: N=2^{N.bit_length() - 1} m={m} "
+        f"({m / N:.3f} N): the {MESH_SHARDS}- and {2 * MESH_SHARDS}-shard "
+        f"float64 flush == unsharded; flush_ms {MESH_SHARDS} shards "
+        f"{times[MESH_SHARDS]:.2f}, {2 * MESH_SHARDS} shards "
+        f"{times[2 * MESH_SHARDS]:.2f}, unsharded {one_ms:.2f}; the "
+        f"reference's float32 sharded flush, margin (exact only < 0.25): "
+        f"L=N/{MESH_SHARDS} {margins[MESH_SHARDS]:.4f}, "
+        f"L=N/{2 * MESH_SHARDS} {margins[2 * MESH_SHARDS]:.4f}")
+    return margins
+
+
+def mesh_program_window(dev, mesh):
+    """One window of Bob's program at phase 3's production rung (B = 128)
+    on ``mesh``, inputs from a numpy seed (identical in every process):
+    (psum'd ledger, this process's stats rows)."""
+    import numpy as np
+    import torch
+    from qtpu_torch import prng
+    from qtpu_torch.link import make_direct_pair
+    from qtpu_torch.pipeline import BobSession, production_config
+    from qtpu_torch.window_programs import (choose_affine, make_header,
+                                            make_window_programs)
+    cfg = production_config()
+    probe = BobSession(cfg, 0x5E55, make_direct_pair()[1], device=dev)
+    r, _ = probe.ladder.select_fine(QBER, granularity=cfg.short_granularity)
+    one = probe.programs(r)
+    pos = probe._step_positions[r]
+    progs = make_window_programs(
+        probe.ladder.steps[r].code, pos["payload"], pos["punct"],
+        pos["short"], cfg.max_iters, cfg.alg, cfg.verify_hash_bits,
+        one.l_max, batch=cfg.blocks_per_window, k_pb=one.k_pb,
+        s_max=one.s_max, retry_bits=one.retry_bits, device=dev, mesh=mesh)
+    B, P = cfg.blocks_per_window, pos["payload"].size
+    rng = np.random.default_rng(16)
+    a_bits = rng.integers(0, 2, B * P, dtype=np.uint8)
+    b_bits = a_bits ^ (rng.random(B * P) < QBER).astype(np.uint8)
+    wkey = prng.key_data(prng.derive(prng.root_key(16), "win", 0))
+    pkey = prng.key_data(prng.derive(prng.root_key(17), "punct", 0))
+    a, ainv = choose_affine(rng.integers(2, P, size=64), P)
+    s = one.s_max // 64 * 32
+    hdr = dict(test_bits_pb=one.k_pb, affine=(a, ainv, 5))
+    _, syn, hashes, test, short = one.alice(
+        torch.from_numpy(a_bits).to(dev), make_header(0, s, wkey, pkey, **hdr))
+    out = progs.bob(torch.from_numpy(b_bits).to(dev),
+                    make_header(0, s, wkey, **hdr), test, short, syn, hashes,
+                    np.float32(np.log((1 - QBER) / QBER)))
+    return out[5].cpu().tolist(), out[4].cpu().tolist()
+
+
+def mesh_worker(rank: int, port: int) -> int:
+    """``chip_smoke.py --mesh-worker RANK PORT``: one of phase 16's two
+    processes; prints its psum'd ledger, stats rows and launches as JSON."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from qtpu_torch.parallel import init_distributed, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    backend = init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    try:
+        mesh = make_mesh(devices=[dev] * (MESH_SHARDS // 2))
+        reset_launches()
+        gled, stats = mesh_program_window(dev, mesh)
+        print(json.dumps({"rank": rank, "backend": backend,
+                          "first": mesh.first, "size": mesh.size,
+                          "gled": gled, "stats": stats,
+                          "launches": read_launches()}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def two_process_phase(dev, timeout):
+    """Phase 16: two ``--mesh-worker`` processes on this card against the
+    one-process 4-shard program; returns the ranks' summed launches."""
+    import os
+    import socket
+    from qtpu_torch.parallel import make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t = time.perf_counter()
+    procs = []
+    try:
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+                 str(rank), str(port)], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = []
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=timeout)
+            assert proc.returncode == 0, \
+                f"mesh worker {rank} exited {proc.returncode}: {err[-2000:]}"
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t
+    gled, stats = mesh_program_window(dev,
+                                      make_mesh(devices=[dev] * MESH_SHARDS))
+    bl = len(stats) // MESH_SHARDS
+    for o in outs:
+        assert (o["backend"], o["size"]) == ("gloo", MESH_SHARDS), o
+        assert o["gled"] == gled, f"rank {o['rank']}: ledger != one process"
+        assert o["stats"] == stats[o["first"] * bl:
+                                   (o["first"] + MESH_SHARDS // 2) * bl]
+        assert o["launches"]["bp_layered"] == MESH_SHARDS // 2, o["launches"]
+    launches = sum(o["launches"]["bp_layered"] for o in outs)
+    say(f"two processes (gloo over CUDA tensors): ranks 0 and 1 each own "
+        f"{MESH_SHARDS // 2} of {MESH_SHARDS} shards on {dev}; psum'd "
+        f"ledger {gled} on both == the one-process program's; stats rows "
+        f"equal; {launches} bp_layered launches; {wall:.1f} s for both")
+    return launches
 
 
 def main() -> int:
@@ -667,12 +950,55 @@ def main() -> int:
         f"{b['final_key_bits']} key bits, auth_bits "
         f"{b['ledger']['auth_bits']}, {tcp_s:.1f} s for both processes")
 
+    # 13. sharded decode over a 4-shard mesh of this card
+    sh_l, sh_ms, sh_ms1 = sharded_decode_phase(
+        f"layered native3 rung {rung}", step.code, llr, syn, cfg.max_iters,
+        "layered", reps=5)
+    sh_f, shf_ms, shf_ms1 = sharded_decode_phase(
+        "flooding regular (3,6)", reg, llr_f, syn_f, 60, "minsum", reps=5)
+
+    # 14. the production session with Bob on the mesh
+    mesh_launches = mesh_session_phase(
+        dev, production_config(max_inflight_windows=1), MESH_WINDOWS, 14)
+
+    # 15. stream PA on the mesh: the production flush, then a session
+    from qtpu_torch.parallel import make_mesh
+    sharded_flush_phase(dev, probe.payload_per_block(r_st),
+                        probe.programs(r_st).l_max)
+    a_src, b_src = bsc_on_card(
+        dev, (STREAM_WINDOWS + 4) * st_cfg.n * st_cfg.blocks_per_window, 15)
+    reset_launches()
+    alice, bob, timed = run_session(
+        st_cfg, a_src, b_src, dev, STREAM_WINDOWS, feed_chunk=1 << 23,
+        mesh=make_mesh(devices=[dev] * MESH_SHARDS))
+    mst_launches = read_launches()
+    check_session("mesh stream-pa session", alice, bob, timed, mst_launches,
+                  "bp_layered")
+    check_gled(bob)
+    key = bob.final_key_bits()
+    assert bob._stream_flushes >= 2, f"{bob._stream_flushes} stream flushes"
+    for party in (alice, bob):
+        assert party.ledger.final_bits == key.size, \
+            "mesh stream-pa: ledger final_bits != emitted key bits"
+    say(f"mesh stream-pa session: {bob._stream_flushes} sharded flushes == "
+        f"Alice's unsharded ones, ledger final_bits == key bits == "
+        f"{key.size}")
+    del alice, bob, a_src, b_src
+
+    # 16. two processes, each owning half of the mesh
+    two_launches = two_process_phase(dev, timeout=300)
+
     say(json.dumps({"kernels": [{
         "name": "bp_layered", "route": "cuda",
         "source": "qtpu_torch/csrc/bp_layered.cu",
         "replaces": "qtpu/ldpc/pallas_bp.py:168",
         "launches": prod["bp_layered"],
         "launches_stream_pa_session": st_launches["bp_layered"],
+        "launches_sharded_decode_call": sh_l,
+        "launches_mesh_session": mesh_launches["bp_layered"],
+        "launches_mesh_stream_pa_session": mst_launches["bp_layered"],
+        "launches_two_processes": two_launches,
+        "sharded_ms": round(sh_ms, 4), "unsharded_ms": round(sh_ms1, 4),
         "max_abs_err": float(err),
         "ms": round(ms, 4), "plain_ms": round(plain_ms, 2)}, {
         "name": "bp_flooding", "route": "cuda",
@@ -682,6 +1008,8 @@ def main() -> int:
         "launches_minsum_session": ms_launches["bp_flooding"],
         "launches_cli_demo": demo_launches["bp_flooding"],
         "launches_cli_fer": fer_launches["bp_flooding"],
+        "launches_sharded_decode_call": sh_f,
+        "sharded_ms": round(shf_ms, 4), "unsharded_ms": round(shf_ms1, 4),
         "max_abs_err": float(f_err),
         "ms": round(f_ms, 4), "plain_ms": round(f_plain_ms, 2)}]}))
     say(nvidia_smi())
@@ -692,4 +1020,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

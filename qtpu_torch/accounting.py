@@ -5,9 +5,9 @@ globals, and the final-length formula applied before privacy amplification
 (SURVEY.md §3 #10/#14, §4.3 "bookkeeping", Appendix B).
 
 TPU-first design: the ledger is a small vector of named counters so that in a
-sharded run the global ledger is literally ``jax.lax.psum`` of the per-shard
-ledgers over the mesh (BASELINE config 5: "global leaked-bit psum
-accounting") — see qtpu.parallel.
+sharded run the global ledger is the sum of the per-shard ledger vectors
+over the mesh (BASELINE config 5: "global leaked-bit psum accounting") —
+see qtpu_torch.parallel.psum_ledger.
 """
 
 from __future__ import annotations

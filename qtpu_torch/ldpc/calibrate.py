@@ -6,9 +6,9 @@ whose FER stays under a target; ``RateLadder.select`` then picks the
 highest rung whose ceiling admits the estimate.  The measuring tools decode
 through the sessions' decoder choice (``window_programs._pick_decoder``):
 the Hopper kernels on a CUDA device, their plain PyTorch versions on the
-CPU; the error flags are reduced on the device, so only the FER and the
-mean iteration count cross to the host.  Sum-product raises
-NotImplementedError, as in the sessions.
+CPU (sum-product, which had no TPU kernel, is plain PyTorch on both); the
+error flags are reduced on the device, so only the FER and the mean
+iteration count cross to the host.
 
 Run ``python -m qtpu_torch.ldpc.calibrate [--device cuda] [spec ...]`` to
 (re)produce the tables; the frozen results below (copies of the

@@ -106,17 +106,19 @@ def make_cuda_decoder(code: QCCode, max_iters: int, alpha: float = 0.8125,
                       alg: str = "layered"):
     """``(llr (B,n) f32, syndrome (B,m) uint8) -> BatchDecodeResult`` for
     ``alg`` "layered" or "minsum" (flooding): the Hopper kernel for CUDA
-    tensors, the plain decoder for CPU ones."""
+    tensors, the plain decoder for CPU ones.  "sumprod" had no TPU kernel
+    (XLA only in the reference): its plain PyTorch decoder is its port and
+    runs on every device."""
     if alg == "layered":
         tab_np = code_tables(code)
         plain = make_layered_decoder(code, max_iters, alpha)
     elif alg == "minsum":
         tab_np = flooding_tables(code)
         plain = make_flooding_decoder(code, max_iters, alpha)
+    elif alg == "sumprod":
+        return make_flooding_decoder(code, max_iters, alpha, alg="sumprod")
     else:
-        raise NotImplementedError(
-            f"alg={alg!r} has no CUDA kernel in qtpu_torch (sum-product is "
-            f"XLA-only in the reference); use 'layered' or 'minsum'")
+        raise ValueError(f"unknown alg {alg!r}")
     name = KERNELS[alg]
     mb, nb, z, E = code.mb, code.nb, code.z, code.num_edges
     max_dc = max(int((row >= 0).sum()) for row in code.row_edges)

@@ -1,17 +1,21 @@
-"""Batched min-sum decoding in plain PyTorch: layered and flooding.
+"""Batched BP decoding in plain PyTorch: layered and flooding min-sum, and
+flooding sum-product.
 
 Counterpart of ``qtpu/ldpc/decode.py``: the result type, the channel LLR,
 the layered decoder ``_make_layered_decoder`` (``decode.py:217-306``) and
-the flooding min-sum branch of ``make_batch_decoder`` (``decode.py:75-214``)
-op for op — same float32 operation order, so bits, iteration counts and
-converged flags equal the reference's (and ``qtpu.ldpc.golden``'s) exactly.
+the flooding branch of ``make_batch_decoder`` (``decode.py:75-214``) op
+for op — same float32 operation order, so min-sum bits, iteration counts
+and converged flags equal the reference's (and ``qtpu.ldpc.golden``'s)
+exactly.  Sum-product's tanh / atanh come from each library's own math, so
+it agrees with the reference up to their last-bit differences.
 
-These are the plain versions beside the Hopper kernels
+The min-sum decoders are the plain versions beside the Hopper kernels
 (``qtpu_torch.ldpc.cuda_bp``): the CPU path of the pipeline runs them, the
 tests hold them to the JAX decoders, and ``chip_smoke.py`` holds the kernels
-to them on the card.  Layout is the natural ``(B, nb, z)``: each base column
-or edge is a ``(B, z)`` slice and a circulant permutation is ``torch.roll``
-along z.  Sum-product (XLA-only in the reference) is not ported.
+to them on the card.  Sum-product had no TPU kernel (XLA only in the
+reference): this plain form is its port on every device.  Layout is the
+natural ``(B, nb, z)``: each base column or edge is a ``(B, z)`` slice and a
+circulant permutation is ``torch.roll`` along z.
 """
 
 from __future__ import annotations
@@ -87,11 +91,33 @@ def _minsum_row(msgs, coset, alpha: float):
             for k in range(len(msgs))]
 
 
+def _sumprod_row(msgs, coset):
+    """Sum-product check update of one base row (``_check_update_sumprod``
+    of the reference): tanh rule with leave-one-out prefix/suffix products,
+    messages clipped to +-30 and products to +-(1 - 1e-7)."""
+    tanhs = [torch.tanh(torch.clamp(m, -30.0, 30.0) * 0.5) for m in msgs]
+    d = len(msgs)
+    prefix = [torch.ones_like(tanhs[0])]
+    for k in range(d - 1):
+        prefix.append(prefix[-1] * tanhs[k])
+    suffix = [torch.ones_like(tanhs[0])]
+    for k in range(d - 1, 0, -1):
+        suffix.append(suffix[-1] * tanhs[k])
+    suffix = suffix[::-1]
+    out = []
+    for k in range(d):
+        t = torch.clamp(prefix[k] * suffix[k], -1 + 1e-7, 1 - 1e-7)
+        val = 2.0 * torch.atanh(t) * coset
+        out.append(torch.where(t.abs() < 1e-12, 0.0, val))
+    return out
+
+
 def make_flooding_decoder(code: QCCode, max_iters: int,
-                          alpha: float = 0.8125):
+                          alpha: float = 0.8125, alg: str = "minsum"):
     """``(llr (B,n) f32, syndrome (B,m)) -> BatchDecodeResult``: flooding
-    normalized min-sum in plain PyTorch; op order mirrors the ``minsum``
-    branch of ``qtpu.ldpc.decode.make_batch_decoder`` exactly.
+    BP in plain PyTorch, normalized min-sum (``alg="minsum"``) or
+    sum-product (``alg="sumprod"``, ``alpha`` unused); op order mirrors the
+    flooding branch of ``qtpu.ldpc.decode.make_batch_decoder``.
 
     Round semantics: ``iterations`` counts check updates; a block whose
     channel hard decision already satisfies the syndrome reports 0, a block
@@ -102,6 +128,8 @@ def make_flooding_decoder(code: QCCode, max_iters: int,
     edge_shift = [int(x) for x in code.edge_shift]
     row_edges = [[int(e) for e in row if e >= 0] for row in code.row_edges]
     col_edges = [[int(e) for e in col if e >= 0] for col in code.col_edges]
+    if alg not in ("minsum", "sumprod"):
+        raise ValueError(f"unknown flooding alg {alg!r}")
     mb, nb, z, E = code.mb, code.nb, code.z, code.num_edges
     alpha_f = float(alpha)
 
@@ -136,7 +164,9 @@ def make_flooding_decoder(code: QCCode, max_iters: int,
         out = [None] * E
         for i in range(mb):
             slots = row_edges[i]
-            new = _minsum_row([v2c[e] for e in slots], syn_sign[i], alpha_f)
+            msgs = [v2c[e] for e in slots]
+            new = (_minsum_row(msgs, syn_sign[i], alpha_f) if alg == "minsum"
+                   else _sumprod_row(msgs, syn_sign[i]))
             for k, e in enumerate(slots):
                 out[e] = new[k]
         return out

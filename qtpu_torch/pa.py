@@ -29,6 +29,7 @@ __all__ = [
     "make_toeplitz_hasher",
     "toeplitz_hash_fft",
     "stream_toeplitz",
+    "stream_counts",
     "stream_margin",
     "final_key_length",
     "toeplitz_margin",
@@ -128,6 +129,18 @@ def _stream_segments(t_bits: torch.Tensor, stream: torch.Tensor, m: int,
                              stream[s * L:(s + 1) * L], m, precision)
 
 
+def stream_counts(t_bits: torch.Tensor, stream: torch.Tensor, m: int,
+                  segment: int = 1 << 20,
+                  precision: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (m,) int32 counts of ``stream_toeplitz`` before the mod 2: each
+    segment's contribution rounded and added in int32 (exact).  A sharded
+    hash (``qtpu_torch.parallel``) adds these over its shards first."""
+    acc = torch.zeros(m, dtype=torch.int32, device=stream.device)
+    for contrib in _stream_segments(t_bits, stream, m, segment, precision):
+        acc += torch.round(contrib).to(torch.int32)
+    return acc
+
+
 def stream_toeplitz(t_bits: torch.Tensor, stream: torch.Tensor, m: int,
                     segment: int = 1 << 20,
                     precision: torch.dtype = torch.float32) -> torch.Tensor:
@@ -147,10 +160,8 @@ def stream_toeplitz(t_bits: torch.Tensor, stream: torch.Tensor, m: int,
     t_bits: (m + N - 1,) seed; stream: (N,) 0/1 on the same device, with N
     a multiple of ``segment`` (pad with zeros — zero bits add nothing).
     """
-    acc = torch.zeros(m, dtype=torch.int32, device=stream.device)
-    for contrib in _stream_segments(t_bits, stream, m, segment, precision):
-        acc += torch.round(contrib).to(torch.int32)
-    return (acc & 1).to(torch.uint8)
+    counts = stream_counts(t_bits, stream, m, segment, precision)
+    return (counts & 1).to(torch.uint8)
 
 
 def stream_margin(t_bits: torch.Tensor, stream: torch.Tensor, m: int,

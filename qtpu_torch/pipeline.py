@@ -23,8 +23,10 @@ may differ.  The per-window protocol is:
 Device→host fetches (the per-window stats, the packed final keys) start as
 non-blocking copies into pinned host memory with a recorded CUDA event, so
 ``BobSession.flush(block=False)`` polls ``event.query()`` instead of
-stalling.  The device mesh is not ported here (``BobSession(mesh=...)``
-raises NotImplementedError).
+stalling.  ``BobSession(mesh=...)`` shards Bob's decode program over a
+``qtpu_torch.parallel.Mesh`` of this process: the decode-stage leakage then
+comes from the program's psum'd ledger, and a stream-PA flush is the
+sharded hash (``qtpu_torch.parallel.make_stream_pa``).
 
 Key protocol changes vs round 2 (both parties must agree — this is the
 wire-compatible v2):
@@ -65,10 +67,11 @@ import torch
 
 from qtpu_torch import pa as pa_mod
 from qtpu_torch import prng
-from qtpu_torch.accounting import Ledger
+from qtpu_torch.accounting import LEDGER_FIELDS, Ledger
 from qtpu_torch.ldpc.codes import RateLadder, make_rate_ladder
 from qtpu_torch.messages import (Abort, Message, MsgType, RateSelect,
                            RetryDisclose, Syndromes, VerifyAck, WindowOpen)
+from qtpu_torch.parallel import make_stream_pa
 from qtpu_torch.stream import DeviceStream
 from qtpu_torch.window_programs import (WindowPrograms, choose_affine,
                                   make_header, make_window_programs)
@@ -256,9 +259,10 @@ class _Party:
     """Shared machinery: code, ladder, per-rate device programs, stream."""
 
     def __init__(self, config: PipelineConfig, session_seed: int,
-                 device="cpu"):
+                 device="cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
+        self._mesh = mesh
         self.ladder: RateLadder = make_rate_ladder(
             config.n, config.dv, config.target_rates, seed=config.code_seed,
             alg=config.alg, family=config.family)
@@ -316,7 +320,7 @@ class _Party:
 
     def programs(self, rate_index: int) -> WindowPrograms:
         if rate_index not in self._programs:
-            ck = (self.config, rate_index, str(self.device))
+            ck = (self.config, rate_index, str(self.device), self._mesh)
             cached = _PROGRAM_CACHE.get(ck)
             if cached is not None:
                 _PROGRAM_CACHE.move_to_end(ck)
@@ -347,7 +351,8 @@ class _Party:
                 self.config.max_iters, self.config.alg,
                 self.config.verify_hash_bits, l_max,
                 batch=self.config.blocks_per_window, k_pb=k_max,
-                s_max=smx, retry_bits=retry_bits, device=self.device)
+                s_max=smx, retry_bits=retry_bits, device=self.device,
+                mesh=self._mesh)
             self._programs[rate_index] = progs
             _PROGRAM_CACHE[ck] = progs
             while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_MAX:
@@ -579,7 +584,8 @@ class _Party:
 
     def _flush_stream_range(self, lo: int, hi: int) -> int:
         """Hash windows [lo, hi)'s accumulated stream (in window-id order)
-        with one Toeplitz seed, on the session's device."""
+        with one Toeplitz seed, on the session's device (sharded with an
+        integer psum on a mesh)."""
         parts, net = [], 0
         for w in range(lo, hi):
             pay, n = self._stream_buf.pop(w, (None, 0))
@@ -595,19 +601,25 @@ class _Party:
         if m == 0 or size == 0:
             return 0
         # The pad length is protocol configuration (both parties hash the
-        # identical padded stream): the next power of two, at least 2^16.
+        # identical padded stream whatever their meshes): the next power of
+        # two, at least 2^16, so a power-of-two mesh up to 2^16 splits it.
         n_pad = max(1 << 16, 1 << (size - 1).bit_length())
         padded = torch.zeros(n_pad, dtype=torch.uint8, device=self.device)
         padded[:size] = torch.cat(parts)
         key = prng.derive(self.session, "pa-stream", flush_idx)
         t = torch.from_numpy(prng.random_bits(key, (m + n_pad - 1,)))
-        # float64 in at most two segments: a segment's counts reach its
-        # length (2^24 at the production flush), far inside float64's
-        # exact-rounding range, and two segments run the fewest FFT points
-        # (the reference's float32 in 2^16-bit segments runs ~256x more).
-        fk = pa_mod.stream_toeplitz(t.to(self.device), padded, m,
-                                    segment=max(1 << 16, n_pad // 2),
-                                    precision=torch.float64)
+        if self._mesh is not None:
+            fk = make_stream_pa(self._mesh, n_pad, m)(t.to(self.device),
+                                                      padded)
+        else:
+            # float64 in at most two segments: a segment's counts reach its
+            # length (2^24 at the production flush), far inside float64's
+            # exact-rounding range, and two segments run the fewest FFT
+            # points (the reference's float32 in 2^16-bit segments runs
+            # ~256x more).
+            fk = pa_mod.stream_toeplitz(t.to(self.device), padded, m,
+                                        segment=max(1 << 16, n_pad // 2),
+                                        precision=torch.float64)
         self._final_host.append(fk.cpu().numpy())
         self.final_key_index.append((hi - 1, -1 - flush_idx))
         return m
@@ -985,12 +997,23 @@ class BobSession(_Party):
     decodes with inline QBER pinning, acks."""
 
     def __init__(self, config: PipelineConfig, session_seed: int, link,
-                 mesh=None, device="cpu"):
+                 mesh=None, device=None):
+        # Optional DP mesh (qtpu_torch.parallel.Mesh of this process): shards
+        # the decode program's block batch over it with a psum'd per-window
+        # ledger (BASELINE config 5).  The session lives on the mesh's first
+        # device; blocks_per_window must divide by the mesh size.
         if mesh is not None:
-            raise NotImplementedError(
-                "the device-mesh Bob (qtpu/parallel.py) is not ported to "
-                "qtpu_torch yet")
-        super().__init__(config, session_seed, device)
+            if mesh.group is not None:
+                raise ValueError("a session's mesh must hold every shard in "
+                                 "this process (no process group)")
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
+            device = mesh.devices[0]
+        super().__init__(config, session_seed,
+                         "cpu" if device is None else device, mesh)
+        self.last_gled = None
+        self.gled_by_window: dict[int, np.ndarray] = {}
         self.link = link
         self._inflight: dict[int, dict] = {}
         from qtpu_torch.qber import QberEstimator
@@ -1242,7 +1265,7 @@ class BobSession(_Party):
         # goes back to the link.
         syndromes_dev = _on_device(msg.syndromes, self.device)
         exp_hashes_dev = _on_device(msg.verify_hashes, self.device)
-        hat, rx_orig, rx_pin, pinmask, stats_dev = prog.bob(
+        out = prog.bob(
             self.stream.arena, header, _on_device(test_alice, self.device),
             _on_device(short_alice, self.device), syndromes_dev,
             exp_hashes_dev, mag)
@@ -1250,9 +1273,14 @@ class BobSession(_Party):
         disclosed = ((k_pb + s) * B, step.leaked_bits() * B,
                      self.config.verify_hash_bits * B)
         st["disclosed"] = disclosed
-        self.ledger.add(qber_test_bits=disclosed[0],
-                        syndrome_bits=disclosed[1],
-                        verify_hash_bits=disclosed[2])
+        if self._mesh is not None:
+            hat, rx_orig, rx_pin, pinmask, stats_dev, gled = out
+            st["gled_host"] = _HostCopy(gled)
+        else:
+            hat, rx_orig, rx_pin, pinmask, stats_dev = out
+            self.ledger.add(qber_test_bits=disclosed[0],
+                            syndrome_bits=disclosed[1],
+                            verify_hash_bits=disclosed[2])
         # Start the tiny (B, 4) stats transfer NOW: by resolve time the row
         # has usually landed, so the resolve costs no extra device sync.
         st.update(stage="decoding", consumed=take, header=header,
@@ -1279,6 +1307,17 @@ class BobSession(_Party):
             self._uncorrectable_streak = 0
         if rnd == 0:
             self._update_qber_prior(st)
+            if "gled_host" in st:
+                # Mesh mode: the decode-stage leakage comes from the
+                # program's psum'd global ledger (BASELINE config 5).
+                gled = st.pop("gled_host").numpy()
+                self.last_gled = gled
+                self.gled_by_window[w] = gled
+                idx = {f: i for i, f in enumerate(LEDGER_FIELDS)}
+                self.ledger.add(
+                    qber_test_bits=int(gled[idx["qber_test_bits"]]),
+                    syndrome_bits=int(gled[idx["syndrome_bits"]]),
+                    verify_hash_bits=int(gled[idx["verify_hash_bits"]]))
         ack = VerifyAck(window_id=w, num_blocks=B,
                         ok_mask=ok.astype(np.uint8), round=rnd)
         if (~ok).any() and rnd < self.config.max_retries:

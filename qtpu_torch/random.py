@@ -33,9 +33,12 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
 def key_from_data(data, device) -> torch.Tensor:
-    """(2,) int64 key from raw uint32 key data (``jax.random.wrap_key_data``)."""
-    return torch.tensor([int(data[0]), int(data[1])], dtype=torch.int64,
-                        device=device)
+    """(2,) int64 key from raw uint32 key data (``jax.random.wrap_key_data``),
+    written by two scalar fills: no copy from host memory, so a CUDA key
+    costs no host sync."""
+    key = torch.empty(2, dtype=torch.int64, device=device)
+    key[0], key[1] = int(data[0]), int(data[1])
+    return key
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:

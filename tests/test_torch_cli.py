@@ -505,12 +505,13 @@ def test_cascade_leakage_order():
 
 # -- calibration tools and the CLI -------------------------------------------
 
-@pytest.mark.parametrize("alg", ["minsum"])
+@pytest.mark.parametrize("alg", ["minsum", "sumprod"])
 def test_measure_fer_matches_reference(alg):
     """Same numpy batch, same frame errors, on the port's plain flooding
-    decoder (the ``fer``/``calibrate`` default).  The layered schedule is
-    left out: on blocks that never converge the reference's CPU decoder
-    departs from golden (an FMA XLA forms), which FER at 6% counts."""
+    decoders: min-sum (the ``fer``/``calibrate`` default) and sum-product.
+    The layered schedule is left out: on blocks that never converge the
+    reference's CPU decoder departs from golden (an FMA XLA forms), which
+    FER at 6% counts."""
     from qtpu.ldpc.calibrate import measure_fer as j_measure_fer
     from qtpu.ldpc.codes import make_rate_ladder as j_ladder
     from qtpu_torch.ldpc.calibrate import measure_fer
@@ -525,14 +526,6 @@ def test_measure_fer_matches_reference(alg):
         assert fer == jfer
         assert 0 < iters
     assert fer > 0
-
-
-def test_measure_fer_sumprod_raises():
-    from qtpu_torch.ldpc.calibrate import measure_fer
-    from qtpu_torch.ldpc.codes import make_rate_ladder
-    step = make_rate_ladder(1024).steps[0]
-    with pytest.raises(NotImplementedError, match="sumprod"):
-        measure_fer(step, 0.03, blocks=4, alg="sumprod")
 
 
 def test_calibrate_ladder_and_bisect_small():

@@ -246,3 +246,194 @@ def test_measure_fer_card_matches_cpu(dev):
     got = measure_fer(step, 0.05, blocks=64, seed=2, device=dev)
     assert cuda_bp.launches["bp_flooding"] == before + 1
     assert got == measure_fer(step, 0.05, blocks=64, seed=2, device="cpu")
+
+
+# -- the mesh: shards of one card, shards on several cards, NCCL processes --
+
+def _cards(k):
+    """The first k cards, or a skip when the machine has fewer."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < k:
+        pytest.skip(f"needs {k} CUDA devices")
+    return [torch.device("cuda", i) for i in range(k)]
+
+
+@pytest.mark.parametrize("alg", ["layered", "minsum"])
+def test_sharded_decoder_on_card_matches_one_launch(dev, alg):
+    from qtpu_torch.parallel import make_mesh, make_sharded_decoder
+    code = make_rate_ladder(4096, family="mixed", alg=alg).steps[1].code
+    llr, syn = _inputs(code, np.linspace(0.005, 0.06, 32), 5, dev)
+    mesh = make_mesh(devices=[dev] * 4)
+    before = cuda_bp.launches[cuda_bp.KERNELS[alg]]
+    got = make_sharded_decoder(code, mesh, 40, alg)(llr, syn)
+    torch.cuda.synchronize()
+    assert cuda_bp.launches[cuda_bp.KERNELS[alg]] == before + 4
+    _same(got, cuda_bp.make_cuda_decoder(code, 40, alg=alg)(llr, syn))
+
+
+def _mesh_cfg(**kw):
+    return PipelineConfig(n=1024, blocks_per_window=8, qber_test_bits=512,
+                          max_inflight_windows=1, **kw)
+
+
+def _mesh_session(cfg, mesh, device):
+    from qtpu_torch.link import make_direct_pair
+    from qtpu_torch.pipeline import AliceSession, BobSession, pump_sessions
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 2, 80_000, dtype=np.uint8)
+    b = a ^ (rng.random(80_000) < 0.03).astype(np.uint8)
+    la, lb = make_direct_pair()
+    alice = AliceSession(cfg, 0x5E55, la, device=device)
+    bob = BobSession(cfg, 0x5E55, lb, mesh=mesh, device=device)
+    alice.push_sifted(a)
+    bob.push_sifted(b)
+    pump_sessions(alice, bob, la, lb)
+    return alice, bob
+
+
+@pytest.mark.parametrize("pa_mode", ["per_block", "stream"])
+def test_mesh_session_on_card_matches_cpu(dev, pa_mode):
+    """Bob on 4 shards of the card == Bob on 4 CPU shards (keys, ledgers,
+    metrics, psum'd ledgers), every shard a kernel launch."""
+    from qtpu_torch.parallel import make_mesh
+    cfg = _mesh_cfg(pa_mode=pa_mode, pa_stream_windows=2)
+    ca, cb = _mesh_session(cfg, make_mesh(devices=["cpu"] * 4), "cpu")
+    before = cuda_bp.launches["bp_layered"]
+    ga, gb = _mesh_session(cfg, make_mesh(devices=[dev] * 4), dev)
+    key = cb.final_key_bits()
+    assert key.size > 0
+    for s in (ca, ga, gb):
+        np.testing.assert_array_equal(s.final_key_bits(), key)
+    assert gb.ledger.as_dict() == cb.ledger.as_dict() == ga.ledger.as_dict()
+    assert [m.as_dict() for m in gb.metrics] == [m.as_dict()
+                                                for m in cb.metrics]
+    assert sorted(gb.gled_by_window) == sorted(cb.gled_by_window)
+    for w, g in cb.gled_by_window.items():
+        np.testing.assert_array_equal(gb.gled_by_window[w], g)
+    assert cuda_bp.launches["bp_layered"] - before >= 4 * len(gb.metrics)
+
+
+def test_mesh_across_cards_matches_one_card():
+    """Shards on cards 0..k-1 of one process: the sharded decoder, the
+    sharded stream hash and a mesh session equal the same mesh on one
+    card (per-device kernel tables, launches on each shard's card)."""
+    from qtpu_torch import pa
+    from qtpu_torch.parallel import make_mesh, make_sharded_decoder, \
+        make_stream_pa
+    cards = _cards(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = len(cards)
+    spread = make_mesh(devices=cards)
+    stacked = make_mesh(devices=[cards[0]] * k)
+    code = make_rate_ladder(4096, family="mixed", alg="layered").steps[1].code
+    llr, syn = _inputs(code, np.linspace(0.005, 0.06, 8 * k), 6, cards[0])
+    for alg in ("layered", "minsum"):
+        got = make_sharded_decoder(code, spread, 40, alg)(llr, syn)
+        _same(got, make_sharded_decoder(code, stacked, 40, alg)(llr, syn))
+        assert got.bits.device == cards[0]
+    rng = np.random.default_rng(7)
+    m, N = 300, 512 * k
+    x = rng.integers(0, 2, N).astype(np.uint8)
+    t = rng.integers(0, 2, m + N - 1).astype(np.uint8)
+    got = make_stream_pa(spread, N, m)(torch.from_numpy(t).to(cards[0]),
+                                       torch.from_numpy(x).to(cards[0]))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  pa.toeplitz_hash_golden(t, x, m))
+    cfg = _mesh_cfg()
+    sa, sb = _mesh_session(cfg, spread, cards[0])
+    oa, ob = _mesh_session(cfg, stacked, cards[0])
+    np.testing.assert_array_equal(sb.final_key_bits(), ob.final_key_bits())
+    assert sb.ledger.as_dict() == ob.ledger.as_dict() == sa.ledger.as_dict()
+
+
+def _mesh_window(mesh, device):
+    """One window of Bob's layered program (n = 1024, B = 16) on ``mesh``
+    from a numpy seed: (psum'd ledger, this process's stats rows)."""
+    from qtpu_torch import prng
+    from qtpu_torch.window_programs import (choose_affine, make_header,
+                                            make_window_programs)
+    code = make_regular_code(1024)
+    B = 16
+    rng = np.random.default_rng(1)
+    keys = rng.integers(0, 2, B * code.n, dtype=np.uint8)
+    bob = keys ^ (rng.random(B * code.n) < 0.03).astype(np.uint8)
+    pay, empty = np.arange(code.n, dtype=np.int64), np.zeros(0, np.int64)
+    kw = dict(max_iters=40, alg="layered", verify_hash_bits=64, l_max=128,
+              batch=B, k_pb=8, s_max=32, device=device)
+    wkey = prng.key_data(prng.derive(prng.root_key(3), "win", 0))
+    pkey = prng.key_data(prng.derive(prng.root_key(7), "punct", 0))
+    a, ainv = choose_affine(iter([7]), code.n)
+    hdr = dict(test_bits_pb=8, affine=(a, ainv, 3))
+    one = make_window_programs(code, pay, empty, empty, **kw)
+    _, syn, hashes, test, short = one.alice(
+        torch.from_numpy(keys).to(device), make_header(0, 0, wkey, pkey, **hdr))
+    out = make_window_programs(code, pay, empty, empty, mesh=mesh, **kw).bob(
+        torch.from_numpy(bob).to(device), make_header(0, 0, wkey, **hdr),
+        test, short, syn, hashes, np.float32(np.log(0.97 / 0.03)))
+    return out[5].cpu().tolist(), out[4].cpu().tolist()
+
+
+def _mesh_process(rank, world, port, backend, out):
+    """One process of a ``world``-process mesh, one shard each: on card
+    ``rank`` for NCCL, on the CPU for gloo."""
+    from qtpu_torch.parallel import init_distributed, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert init_distributed(f"127.0.0.1:{port}", world, rank,
+                            backend=backend) == backend
+    try:
+        device = (torch.device("cuda", rank) if backend == "nccl"
+                  else torch.device("cpu"))
+        mesh = make_mesh(devices=[device])
+        assert (mesh.first, mesh.size) == (rank, world)
+        out.put((rank, *_mesh_window(mesh, device)))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_mesh_processes(world, backend, timeout=180):
+    """Spawn ``world`` ``_mesh_process``es on a free port; {rank: (gled,
+    stats rows)}."""
+    import queue
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_process,
+                         args=(r, world, port, backend, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < world:
+            try:
+                rank, gled, stats = out.get(timeout=timeout)
+            except queue.Empty:
+                pytest.fail(f"{sorted(got)} of {world} ranks answered")
+            got[rank] = (gled, stats)
+        for p in procs:
+            p.join(timeout=60)
+            assert p.exitcode == 0
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got
+
+
+def test_nccl_processes_across_cards():
+    """One process per card over NCCL, one shard each: every rank's psum'd
+    ledger and stats rows equal the one-process mesh's on card 0."""
+    from qtpu_torch.parallel import make_mesh
+    cards = _cards(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = len(cards)
+    got = run_mesh_processes(world, "nccl")
+    gled, stats = _mesh_window(make_mesh(devices=[cards[0]] * world),
+                               cards[0])
+    bl = len(stats) // world
+    for rank, (g, st) in got.items():
+        assert g == gled
+        assert st == stats[rank * bl:(rank + 1) * bl]

@@ -10,7 +10,9 @@ model rounds twice, and so do the port and the kernel).  For flooding
 min-sum: a regular n=1024 batch that includes blocks which never converge,
 and rung 1 (r0.600) of the n=1024 mixed ladder with its punctured columns
 at LLR 0.  The port's own ``make_rate_ladder`` must rebuild the
-reference's ladders array for array.
+reference's ladders array for array.  Sum-product (no TPU kernel; plain
+PyTorch on every device) is held to XLA and golden on the same batches,
+within the tolerance ``_assert_same_converged`` states.
 """
 
 import numpy as np
@@ -186,11 +188,45 @@ def test_flooding_wrapper_runs_plain_decoder_on_cpu(flooding):
     assert cuda_bp.launches == before
 
 
-@pytest.mark.parametrize("alg", ["sumprod"])
-def test_flooding_schedules_not_ported(alg):
-    code = code_from_reference(make_regular_code(1024))
-    with pytest.raises(NotImplementedError, match=alg):
-        _pick_decoder(code, 10, alg)
+def _sumprod(code, llr, syn):
+    """The port's sum-product through the sessions' decoder choice."""
+    before = dict(cuda_bp.launches)
+    res = _pick_decoder(code_from_reference(code), MAX_ITERS, "sumprod")(
+        torch.from_numpy(llr), torch.from_numpy(syn))
+    assert cuda_bp.launches == before    # no kernel: plain on every device
+    return res
+
+
+def _assert_same_converged(bits, converged, iterations, res):
+    """Sum-product tolerance: tanh/atanh come from each library's own
+    math, so a block that never converges may part in its last bits after
+    many iterations.  Converged blocks must agree exactly (bits, iterations,
+    flag); on the others only the flag is compared."""
+    conv = np.asarray(converged)
+    np.testing.assert_array_equal(conv, res.converged.numpy())
+    assert conv.any()
+    np.testing.assert_array_equal(np.asarray(bits)[conv],
+                                  res.bits.numpy()[conv])
+    np.testing.assert_array_equal(np.asarray(iterations)[conv],
+                                  res.iterations.numpy()[conv])
+
+
+def test_sumprod_vs_xla(flooding):
+    code, llr, syn, _ = flooding
+    ref = make_batch_decoder(code, max_iters=MAX_ITERS, alg="sumprod")(
+        jnp.asarray(llr), jnp.asarray(syn))
+    _assert_same_converged(ref.bits, ref.converged, ref.iterations,
+                           _sumprod(code, llr, syn))
+
+
+def test_sumprod_vs_golden(flooding):
+    code, llr, syn, _ = flooding
+    gold = [golden.decode(code, llr[b], syn[b], max_iters=MAX_ITERS,
+                          alg="sumprod") for b in range(llr.shape[0])]
+    _assert_same_converged([g.bits.reshape(-1) for g in gold],
+                           [g.converged for g in gold],
+                           [g.iterations for g in gold],
+                           _sumprod(code, llr, syn))
 
 
 def test_pick_decoder_routes_minsum_to_flooding(flooding):

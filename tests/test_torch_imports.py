@@ -24,6 +24,14 @@ DEVICE_LINES = {
         'return jnp.asarray([getattr(ledger, f) for f in LEDGER_FIELDS], jnp.int32)',
         'def ledger_to_vector(ledger: Ledger) -> torch.Tensor:',
         'return torch.tensor([getattr(ledger, f) for f in LEDGER_FIELDS], dtype=torch.int32)',
+        # The docstring names the port's psum instead of jax.lax.psum.
+        'TPU-first design: the ledger is a small vector of named counters so that in a',
+        'sharded run the global ledger is literally ``jax.lax.psum`` of the per-shard',
+        'ledgers over the mesh (BASELINE config 5: "global leaked-bit psum',
+        'accounting") — see qtpu.parallel.',
+        'sharded run the global ledger is the sum of the per-shard ledger vectors',
+        'over the mesh (BASELINE config 5: "global leaked-bit psum accounting") —',
+        'see qtpu.parallel.psum_ledger.',
     },
     "messages.py": {'a = a.cpu() if hasattr(a, "cpu") else a'},
     # The signed block index lets stream-PA records (-1 - flush_idx) pack.
@@ -50,10 +58,23 @@ def test_no_module_imports_jax():
         " 'qtpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 29, names\n"
+        "assert len(names) >= 32, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qtpu' or m.startswith('qtpu.')]\n"
         "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_imports_no_jax():
+    """The mesh module runs on the card's machine, which has no JAX."""
+    code = ("import sys\n"
+            "import qtpu_torch.parallel\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'qtpu')]\n"
+            "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -68,7 +89,8 @@ def _is_import(line: str) -> bool:
 @pytest.mark.parametrize("rel", [
     "framing.py", "prng.py", "qber.py", "link.py", "messages.py",
     "accounting.py", "channel.py", "ldpc/codes.py", "ldpc/designed.py",
-    "auth.py", "keystore.py", "config.py", "ldpc/cascade.py"])
+    "auth.py", "keystore.py", "config.py", "ldpc/cascade.py",
+    "ldpc/golden.py", "ldpc/design.py"])
 def test_numpy_copy_matches_original(rel):
     orig = (ROOT / "qtpu" / rel).read_text().splitlines()
     port = (ROOT / "qtpu_torch" / rel).read_text()

@@ -3,8 +3,11 @@
 In process, a ``qtpu`` Alice with a ``qtpu_torch`` Bob and the reverse, over
 a link that packs each message with the sender's package and unpacks it
 with the receiver's: for the layered and the flooding min-sum decoder and
-for stream PA.  Both parties must end with identical final keys, key index
-and ledgers, equal to a port-only session's.  Then one two-process run over
+for stream PA; then the same with the other package's Bob on a mesh of 8
+shards (8 CPU shards in the port, the conftest's 8 forced CPU devices in
+qtpu), layered and stream PA, at sizes where the reference's float32
+sharded flush is exact.  Both parties must end with identical final keys,
+key index and ledgers, equal to a port-only unsharded session's.  Then one two-process run over
 TCP: ``python -m qtpu.cli alice`` against ``python -m qtpu_torch.cli
 --device cpu bob`` with channel authentication; both must report the same
 key digest, window count and ledger.  Every session runs with
@@ -25,8 +28,10 @@ import numpy as np
 import pytest
 
 import qtpu.link as jlink
+import qtpu.parallel as jpar
 import qtpu.pipeline as jpipe
 import qtpu_torch.link as tlink
+import qtpu_torch.parallel as tpar
 import qtpu_torch.pipeline as tpipe
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -55,21 +60,26 @@ CONFIGS = {
 }
 
 
-def _run(alice_pkg, bob_pkg, kind):
+MESH = 8
+
+
+def _run(alice_pkg, bob_pkg, kind, blocks=4, bob_mesh=None):
     """Alice from ``alice_pkg`` (a (pipeline, link) pair), Bob from
-    ``bob_pkg``, over one byte channel; returns (alice, bob)."""
+    ``bob_pkg`` (on ``bob_mesh`` when given), over one byte channel;
+    returns (alice, bob)."""
     (apipe, alink), (bpipe, blink) = alice_pkg, bob_pkg
     rng = np.random.default_rng(3)
-    total = 50_000
+    total = 12_500 * blocks
     a_bits = rng.integers(0, 2, total).astype(np.uint8)
     b_bits = a_bits ^ (rng.random(total) < 0.03).astype(np.uint8)
-    kw = dict(n=1024, blocks_per_window=4, qber_test_bits=512,
+    kw = dict(n=1024, blocks_per_window=blocks, qber_test_bits=512,
               max_inflight_windows=1, **CONFIGS[kind])
     a2b, b2a = collections.deque(), collections.deque()
     la = alink.LoopbackLink(a2b, b2a)
     lb = blink.LoopbackLink(b2a, a2b)
     alice = apipe.AliceSession(apipe.PipelineConfig(**kw), 0x5E55, la)
-    bob = bpipe.BobSession(bpipe.PipelineConfig(**kw), 0x5E55, lb)
+    bob = bpipe.BobSession(bpipe.PipelineConfig(**kw), 0x5E55, lb,
+                           mesh=bob_mesh)
     alice.push_sifted(a_bits)
     bob.push_sifted(b_bits)
     tpipe.pump_sessions(alice, bob, la, lb)
@@ -92,6 +102,36 @@ def test_mixed_session_keys_and_ledgers(alice_side, kind):
             == pb.ledger.as_dict())
     assert bob.ledger.final_bits == key.size
     if kind == "stream":
+        assert all(b < 0 for _, b in pb.final_key_index)
+
+
+@pytest.mark.parametrize("kind", ["layered", "stream"])
+@pytest.mark.parametrize("alice_side", ["qtpu", "qtpu_torch"])
+def test_mixed_mesh_session_keys_and_ledgers(alice_side, kind):
+    """The other package's Bob on a mesh of 8 shards, B = 8: identical keys,
+    key index and ledgers on both parties, equal to a port-only unsharded
+    session's; the mesh Bob took his decode leakage from his psum'd
+    ledgers."""
+    ref, port = (jpipe, jlink), (tpipe, tlink)
+    if alice_side == "qtpu":
+        mesh = tpar.make_mesh(num=MESH, devices=["cpu"] * MESH)
+        alice, bob = _run(ref, port, kind, MESH, mesh)
+    else:
+        mesh = jpar.make_mesh("blocks", num=MESH)
+        alice, bob = _run(port, ref, kind, MESH, mesh)
+    _, pb = _run(port, port, kind, MESH)
+    key = pb.final_key_bits()
+    assert key.size > 0 and bob.window_id == pb.window_id >= 4
+    assert sorted(bob.gled_by_window) == sorted(m.window_id
+                                                for m in bob.metrics)
+    np.testing.assert_array_equal(alice.final_key_bits(), key)
+    np.testing.assert_array_equal(bob.final_key_bits(), key)
+    assert alice.final_key_index == bob.final_key_index == pb.final_key_index
+    assert (alice.ledger.as_dict() == bob.ledger.as_dict()
+            == pb.ledger.as_dict())
+    assert bob.ledger.final_bits == key.size
+    if kind == "stream":
+        assert pb._stream_flushes >= 2
         assert all(b < 0 for _, b in pb.final_key_index)
 
 

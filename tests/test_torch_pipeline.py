@@ -92,9 +92,17 @@ def test_loopback_retry_matches_reference(alg):
 
 
 def test_unported_options_raise():
+    """The mesh Bob is ported for a mesh local to the session's process; a
+    mesh spanning a process group is refused, and so is a device other
+    than the mesh's first."""
+    from qtpu_torch.parallel import Mesh
     _, lb = make_direct_pair()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpipe.BobSession(_cfg(tpipe), 1, lb, mesh=object())
+    with pytest.raises(ValueError, match="process group"):
+        tpipe.BobSession(_cfg(tpipe), 1, lb,
+                         mesh=Mesh("blocks", ["cpu"], 0, 2, group=object()))
+    with pytest.raises(ValueError, match="first device"):
+        tpipe.BobSession(_cfg(tpipe), 1, lb, mesh=Mesh("blocks", ["cpu"]),
+                         device="meta")
 
 
 def test_program_cache_is_bounded(monkeypatch):
