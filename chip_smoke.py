@@ -7,10 +7,16 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: both BP kernels from qtpu_torch/csrc/, one nvcc each, in
-   parallel, with their -Xptxas -v lines;
+   parallel, with each kernel entry's registers and spills (-Xptxas -v);
 3. layered kernel vs its plain PyTorch decoder, bits / iterations /
    converged equal, at a production native3 rung (n = 65536, B = 128 and
-   B = 8) and a regular n = 4096 code at B = 256, with both times;
+   B = 8), at every native3 rung of n = 65536 at B = 8 (the cluster size
+   follows the rung's mb) and at a regular n = 4096 code at B = 256, with
+   both times, the bound and the share of bound; the launch plan (cluster
+   size, shared memory per CTA, cudaOccupancyMaxActiveClusters), the
+   memory one B = 128 decode adds (<= 17 MB: outputs only), and the kernel
+   at every cluster size that fits (phase 3's rung at B = 128 and on the
+   batch's 8 slowest blocks, the mb = 4 rung at B = 128, regular n = 4096);
 4. flooding kernel vs its plain decoder, the same checks: a regular
    n = 4096 code at B = 1024 over QBER 1-5% (max_iters 60), and rung 1
    (r0.600, punctured) of the n = 4096 mixed min-sum ladder at B = 64 and 8;
@@ -18,7 +24,8 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
 6. session: production_config(), Alice and Bob on this card over a direct
    link, fed a BSC(3%) stream generated on the card, for 20 windows —
    identical non-empty keys, equal ledgers, FER <= 0.05, a rung switch, a
-   retry round, and the layered kernel launched by the session;
+   retry round, and the layered kernel launched by the session (its
+   launches per window and their batch sizes printed);
 7. min-sum session: n = 4096 mixed ladder, flooding decoder, B = 1024, the
    same checks, and only the flooding kernel launched;
 8. chain: the events -> key entry point (simulated detector events at 10^7
@@ -139,9 +146,85 @@ def time_cuda(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM3
+# bytes per second and float32 operations per second outside the tensor
+# cores.  One min-sum edge-lane update (v2c = t - c2v, |v2c|, two compares
+# for min1/min2, the sign product, alpha * min, c2v' - c2v, the total's
+# add, the parity) is counted as 10 float32 operations.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_PER_EDGE_LANE = 10
+
+
+def decode_bound(code, B, iters_sum):
+    """The least time the card could take for one decode launch: (ms,
+    "bytes" or "operations").  Bytes: llr, syndrome and the code table read
+    once, bits, converged and iterations written once.  Operations: the
+    edge-lane updates of the sweeps (rounds) this run's blocks needed."""
+    nbytes = B * (4 * code.n + code.m + code.n + 1 + 4) + 4 * (
+        code.mb + 1 + 2 * code.num_edges)
+    ops = iters_sum * code.num_edges * code.z * OPS_PER_EDGE_LANE
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ptxas_summary(log: str) -> list:
+    """Per kernel entry of an ``-Xptxas -v`` log: registers and spills (the
+    layered kernel's instantiations named by row width and layout)."""
+    import re
+    out, name, spills = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            t = re.search(r"ILi(\d+)ELb([01])ELi(\d+)ELi(\d+)E",
+                          m.group(1))
+            name = (f"<dmax {t.group(1)}, "
+                    f"{'cluster' if t.group(2) == '1' else 'one CTA'}, "
+                    f"{t.group(3)} threads x {t.group(4)} per SM>"
+                    if t else m.group(1))
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "Used" in ln and name:
+            out.append(f"{name} {ln.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return out
+
+
+def cluster_sweep(label, code, llr, syn, max_iters, reps):
+    """The layered kernel at every cluster size that fits (the decoder
+    picks one): {C: (ms, resident clusters)}, each size's result checked
+    against the decoder's."""
+    import torch
+    from qtpu_torch.ldpc import cuda_bp
+    B = llr.shape[0]
+    dev = llr.device
+    ref = cuda_bp.make_cuda_decoder(code, max_iters)(llr, syn)
+    tab = torch.from_numpy(cuda_bp.code_tables(code)).to(dev)
+    out = {}
+    for C in cuda_bp.CLUSTER_SIZES:
+        try:
+            p = cuda_bp.layered_plan(code, dev, B, cluster=C)
+        except ValueError:
+            continue
+
+        def run():
+            return cuda_bp._layered(code, tab, llr, syn, max_iters, 0.8125, p)
+        got = run()
+        assert torch.equal(got.bits, ref.bits) and torch.equal(
+            got.iterations, ref.iterations), f"{label}: cluster {C} disagrees"
+        out[C] = (time_cuda(run, reps), p.max_clusters)
+    chosen = cuda_bp.layered_plan(code, dev, B).cluster
+    say(f"cluster sweep {label} B={B}: " + ", ".join(
+        f"C={C} {ms:.3f} ms ({act} resident)" + (" <- chosen" if C == chosen
+                                                 else "")
+        for C, (ms, act) in out.items()))
+    return out
+
+
 def kernel_vs_plain(label, code, llr, syn, max_iters, reps, alg="layered"):
     """Kernel against the plain decoder on the same card inputs; returns
-    (max_abs_err, kernel ms, plain ms, mean iterations)."""
+    (max_abs_err, kernel ms, plain ms, bound ms, what bounds it)."""
     import torch
     from qtpu_torch.ldpc.cuda_bp import make_cuda_decoder
     from qtpu_torch.ldpc.decode import (make_flooding_decoder,
@@ -162,16 +245,21 @@ def kernel_vs_plain(label, code, llr, syn, max_iters, reps, alg="layered"):
     assert err == 0, f"{label}: kernel disagrees with the plain decoder"
     ms = time_cuda(lambda: kern(llr, syn), reps)
     iters = float(ref.iterations.float().mean())
-    say(f"kernel {label}: B={llr.shape[0]} n={code.n} max_abs_err={err} "
+    B = llr.shape[0]
+    bound_ms, bound_by = decode_bound(code, B, int(ref.iterations.sum()))
+    say(f"kernel {label}: B={B} n={code.n} max_abs_err={err} "
         f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} iters_mean={iters:.2f} "
-        f"converged={int(ref.converged.sum())}/{llr.shape[0]}")
-    return err, ms, plain_ms, iters
+        f"iters_max={int(ref.iterations.max())} "
+        f"converged={int(ref.converged.sum())}/{B} bound_ms={bound_ms:.4f} "
+        f"({bound_by}) share_of_bound={bound_ms / ms:.4f}")
+    return err, ms, plain_ms, bound_ms, bound_by
 
 
 def reset_launches():
     from qtpu_torch.ldpc import cuda_bp
     for name in cuda_bp.launches:
         cuda_bp.launches[name] = 0
+        cuda_bp.launch_batches[name].clear()
 
 
 def read_launches() -> dict:
@@ -753,9 +841,8 @@ def main() -> int:
     dt = time.perf_counter() - t
     for name in cuda_bp.KERNELS.values():
         _build.load(name)
-        ptx = [ln.strip() for ln in _build.build_log(name).splitlines()
-               if "registers" in ln or "spill" in ln]
-        say(f"build: {name} (both in {dt:.1f} s) | " + " | ".join(ptx))
+        say(f"build: {name} (both in {dt:.1f} s) | "
+            + " | ".join(ptxas_summary(_build.build_log(name))))
 
     # 3. layered kernel vs plain decoder
     cfg = production_config()
@@ -764,23 +851,59 @@ def main() -> int:
                               family=cfg.family)
     rung, _ = ladder.select_fine(QBER, granularity=cfg.short_granularity)
     step = ladder.steps[rung]
+    label = f"native3 rung {rung} ({step.name})"
     qb = np.linspace(0.02, 0.04, 128)
     llr, syn = decode_inputs(step.code, 128, qb, 1, dev, step.punct_cols)
-    err, ms, plain_ms, _ = kernel_vs_plain(
-        f"native3 rung {rung} ({step.name})", step.code, llr, syn,
-        cfg.max_iters, reps=5)
-    kernel_vs_plain(f"native3 rung {rung} ({step.name})", step.code,
-                    llr[:8].contiguous(), syn[:8].contiguous(), cfg.max_iters,
-                    reps=5)
+    err, ms, plain_ms, bound_ms, bound_by = kernel_vs_plain(
+        label, step.code, llr, syn, cfg.max_iters, reps=5)
+    plan = cuda_bp.layered_plan(step.code, dev, 128)
+    kern = cuda_bp.make_cuda_decoder(step.code, cfg.max_iters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    res = kern(llr, syn)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated(dev) - before
+    del res
+    assert added <= 17e6, f"one B=128 decode adds {added} bytes"
+    say(f"layered plan {label} B=128: cluster C={plan.cluster}, "
+        f"{plan.smem} bytes of dynamic shared memory and {plan.threads} "
+        f"threads per CTA, cudaOccupancyMaxActiveClusters="
+        f"{plan.max_clusters}; one decode adds {added / 1e6:.3f} MB "
+        f"(max_memory_allocated); bound {bound_ms:.4f} ms ({bound_by}), "
+        f"share of bound {bound_ms / ms:.4f}")
+    l8, s8 = llr[:8].contiguous(), syn[:8].contiguous()
+    _, ms8, _, _, _ = kernel_vs_plain(label, step.code, l8, s8,
+                                      cfg.max_iters, reps=5)
+    slow8 = (llr[-8:].contiguous(), syn[-8:].contiguous())
+    cluster_sweep(label, step.code, llr, syn, cfg.max_iters, reps=3)
+    cluster_sweep(f"{label}, the batch's 8 slowest", step.code, *slow8,
+                  cfg.max_iters, reps=5)
+    # every rung at B = 8: the cluster size follows the rung's mb
+    for r, st in enumerate(ladder.steps):
+        lr, sr = decode_inputs(st.code, 8, np.linspace(0.02, 0.04, 8),
+                               30 + r, dev, st.punct_cols)
+        p = cuda_bp.layered_plan(st.code, dev, 8)
+        kernel_vs_plain(f"native3 rung {r} ({st.name}, mb={st.code.mb}, "
+                        f"C={p.cluster}, {p.smem} B/CTA)", st.code, lr, sr,
+                        cfg.max_iters, reps=3)
     reg = make_regular_code(4096)
     llr4, syn4 = decode_inputs(reg, 256, np.linspace(0.005, 0.06, 256), 2,
                                dev)
-    kernel_vs_plain("regular (3,6)", reg, llr4, syn4, cfg.max_iters, reps=5)
+    c_reg = cuda_bp.layered_plan(reg, dev, 256).cluster
+    kernel_vs_plain(f"regular (3,6) C={c_reg}", reg, llr4, syn4,
+                    cfg.max_iters, reps=5)
+    cluster_sweep("regular (3,6)", reg, llr4, syn4, cfg.max_iters, reps=5)
+    low = ladder.steps[-1]          # mb = 4: the smallest cluster that fits
+    cluster_sweep(f"native3 rung {len(ladder.steps) - 1} ({low.name})",
+                  low.code, *decode_inputs(low.code, 128, qb, 5, dev,
+                                           low.punct_cols),
+                  cfg.max_iters, reps=3)
 
     # 4. flooding kernel vs plain decoder
     llr_f, syn_f = decode_inputs(reg, 1024, np.linspace(0.01, 0.05, 1024), 3,
                                  dev)
-    f_err, f_ms, f_plain_ms, _ = kernel_vs_plain(
+    f_err, f_ms, f_plain_ms, f_bound_ms, f_bound_by = kernel_vs_plain(
         "flooding regular (3,6)", reg, llr_f, syn_f, 60, reps=5,
         alg="minsum")
     mixed = make_rate_ladder(4096, family="mixed", alg="minsum").steps[1]
@@ -788,7 +911,7 @@ def main() -> int:
     llr_m, syn_m = decode_inputs(mixed.code, 64, np.linspace(0.01, 0.05, 64),
                                  4, dev, mixed.punct_cols)
     for b in (64, 8):
-        e, _, _, _ = kernel_vs_plain(
+        e, _, _, _, _ = kernel_vs_plain(
             f"flooding mixed rung 1 ({mixed.name}, punct {mixed.punct_cols})",
             mixed.code, llr_m[:b].contiguous(), syn_m[:b].contiguous(), 60,
             reps=5, alg="minsum")
@@ -817,9 +940,14 @@ def main() -> int:
     alice, bob, timed = run_session(cfg, a_src, b_src, dev, SESSION_WINDOWS,
                                     feed_chunk=1 << 23)
     prod = read_launches()
+    prod_batches = dict(cuda_bp.launch_batches["bp_layered"])
     mets = check_session("session", alice, bob, timed, prod, "bp_layered")
     assert len({m.rate_index for m in mets}) > 1, "no rung switch"
     assert sum(m.blocks_retried for m in mets) > 0, "no retry round"
+    per_window = prod["bp_layered"] / len(mets)
+    say(f"session layered launches: {prod['bp_layered']} over {len(mets)} "
+        f"windows = {per_window:.3f} per window; launches by batch size "
+        f"{dict(sorted(prod_batches.items()))}")
     del alice, bob, a_src, b_src
 
     # 7. the min-sum session (flooding decoder) on this card
@@ -832,8 +960,9 @@ def main() -> int:
     alice, bob, timed = run_session(ms_cfg, a_src, b_src, dev,
                                     MINSUM_WINDOWS, feed_chunk=1 << 23)
     ms_launches = read_launches()
-    check_session("minsum session", alice, bob, timed, ms_launches,
-                  "bp_flooding")
+    ms_mets = check_session("minsum session", alice, bob, timed,
+                            ms_launches, "bp_flooding")
+    f_per_window = ms_launches["bp_flooding"] / len(ms_mets)
     assert ms_launches["bp_layered"] == 0, "min-sum session ran bp_layered"
     del alice, bob, a_src, b_src
 
@@ -998,9 +1127,14 @@ def main() -> int:
         "launches_mesh_session": mesh_launches["bp_layered"],
         "launches_mesh_stream_pa_session": mst_launches["bp_layered"],
         "launches_two_processes": two_launches,
+        "launches_per_window": round(per_window, 4),
+        "launch_batches": {str(b): c for b, c in sorted(prod_batches.items())},
         "sharded_ms": round(sh_ms, 4), "unsharded_ms": round(sh_ms1, 4),
-        "max_abs_err": float(err),
-        "ms": round(ms, 4), "plain_ms": round(plain_ms, 2)}, {
+        "max_abs_err": float(err), "ms": round(ms, 4), "ms_b8": round(ms8, 4),
+        "plain_ms": round(plain_ms, 2), "bound_ms": round(bound_ms, 4),
+        "bound_by": bound_by, "library_ms": None, "cluster": plan.cluster,
+        "smem_per_cta": plan.smem, "max_active_clusters": plan.max_clusters,
+        "decode_added_mb": round(added / 1e6, 3)}, {
         "name": "bp_flooding", "route": "cuda",
         "source": "qtpu_torch/csrc/bp_flooding.cu",
         "replaces": "qtpu/ldpc/pallas_bp.py:262",
@@ -1009,9 +1143,12 @@ def main() -> int:
         "launches_cli_demo": demo_launches["bp_flooding"],
         "launches_cli_fer": fer_launches["bp_flooding"],
         "launches_sharded_decode_call": sh_f,
+        "launches_per_window": round(f_per_window, 4),
         "sharded_ms": round(shf_ms, 4), "unsharded_ms": round(shf_ms1, 4),
         "max_abs_err": float(f_err),
-        "ms": round(f_ms, 4), "plain_ms": round(f_plain_ms, 2)}]}))
+        "ms": round(f_ms, 4), "plain_ms": round(f_plain_ms, 2),
+        "bound_ms": round(f_bound_ms, 4), "bound_by": f_bound_by,
+        "library_ms": None, "cluster": 1}]}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 The port of ``qtpu`` (JAX on a TPU) to PyTorch with hand-written CUDA
 kernels for an NVIDIA H100.  It mirrors ``qtpu``'s module names so each
 module's counterpart is easy to find, imports ``torch`` and never ``jax``,
-and takes an explicit ``device`` wherever it allocates.  ``qtpu`` stays the
+and takes a ``device`` wherever it allocates: its entry points run on
+``"cuda"`` unless the caller asks for the CPU (``qtpu_torch.devices``).  ``qtpu`` stays the
 reference: on identical input the port gives the same syndromes, decoded
 bits, hashes, final keys and ledgers.
 

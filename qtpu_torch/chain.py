@@ -32,6 +32,7 @@ import torch
 
 from qtpu_torch import sift
 from qtpu_torch.channel import EntangledPairSource, PairEvents
+from qtpu_torch.devices import DEFAULT_DEVICE, resolve_device
 from qtpu_torch.framing import TIME_UNITS_PER_NS
 from qtpu_torch.link import make_direct_pair, make_loopback_pair
 from qtpu_torch.messages import Message, SiftIndex, TimingBasis
@@ -65,7 +66,7 @@ class AliceChain:
     first-answered."""
 
     def __init__(self, config: ChainConfig, session_seed: int, link,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         import collections
         self.config = config
         self.link = link
@@ -149,10 +150,10 @@ class BobChain:
     """Receiver side: acquires offset, coincidence-matches, emits SiftIndex."""
 
     def __init__(self, config: ChainConfig, session_seed: int, link,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.config = config
         self.link = link
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.ec = BobSession(config.pipeline, session_seed, link,
                              device=device)
         self._events: dict[int, tuple[np.ndarray, np.ndarray]] = {}
@@ -396,7 +397,7 @@ class BobChain:
 def run_chain_loopback(config: ChainConfig, num_windows: int = 30,
                        source: Optional[EntangledPairSource] = None,
                        seed: int = 0, session_seed: int = 0x5E55,
-                       device="cpu", wire: bool = True):
+                       device=DEFAULT_DEVICE, wire: bool = True):
     """End-to-end loopback: simulated entangled source through the full chain.
 
     Both chains run on ``device``.  ``wire=True`` serializes every message

@@ -47,12 +47,12 @@ def _build_chain_parts(cfg: RunConfig):
 def _device(name: str):
     """The torch device named by ``--device``; fails when it is a CUDA
     device and CUDA is missing."""
-    import torch
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    from qtpu_torch.devices import resolve_device
+    try:
+        return resolve_device(name)
+    except RuntimeError:
         raise SystemExit(f"qtpu_torch: --device {name}: CUDA is not "
                          f"available (pass --device cpu to run on the CPU)")
-    return dev
 
 
 def cmd_demo(cfg: RunConfig, args) -> int:

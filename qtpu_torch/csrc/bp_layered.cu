@@ -14,20 +14,50 @@
 // and each row's parity (syndrome bit XOR sign bits of the t_k) feeds a
 // fused per-sweep convergence flag, evaluated before the row's own update.
 //
-// Design.  One CTA per code block; the sweeps loop inside the CTA, base rows
-// run in order with __syncthreads() between them, and each thread walks its
-// lanes of the row one lane at a time.  A row has no parallel edges (the
-// wrapper checks it), so within a row every (lane, edge) position of the
-// totals is read and written by exactly one thread: no races, no atomics.
+// Design: the whole decoder state of a code block stays on chip.
+//  * One thread-block cluster of C CTAs per code block (grid B*C, cluster
+//    dims (C, 1, 1)).  CTA c owns lanes [c*z/C, (c+1)*z/C) of every base
+//    row's check-node state and circulant positions [c*z/C, (c+1)*z/C) of
+//    every column's totals, both in its shared memory.  A lane's gather
+//    p = (r + s_k) mod z reaches the owner of p through distributed shared
+//    memory (mapa + ld/st.shared::cluster); a warp's 32 consecutive lanes
+//    touch at most two owners, each at consecutive addresses.  When the
+//    whole state fits one CTA (C = 1: the n <= 4096 codes) the same code
+//    runs on the CTA's own shared memory with CTA barriers.
+//  * Compact check-node state: per (row, lane) min1, min2 (f32), the argmin
+//    slot (u8) and one u32 of per-edge output sign bits, 13 bytes instead
+//    of 4*d.  Each c2v is rebuilt on the fly as sign ? -m : m with
+//    m = alpha * (k == argmin ? min2 : min1): the exact value, -0.0
+//    included, that the per-edge form stores.  The initial state (zeros)
+//    rebuilds to +0.0, the per-edge form's zeroed messages.
+//  * A cluster barrier (barrier.cluster.arrive.release / wait.acquire)
+//    separates base rows.  A row has no parallel edges (the wrapper checks
+//    it), so each (column, position) of the totals has exactly one reader
+//    and writer per row: no atomics on the state.
+//  * Convergence: each warp ANDs its lanes' parities and clears a flag in
+//    rank 0's shared memory (red.and over DSMEM) before the last barrier of
+//    the check; every CTA then reads that flag, so the whole cluster leaves
+//    the sweep loop together.  Three flag slots rotate so a slot is reset
+//    only after every CTA has read it.  A final cluster barrier keeps each
+//    CTA's shared memory alive until no peer can address it.
+//  * Device memory is touched only to read llr, the syndrome and the code
+//    table once and to write bits, converged and iterations once: no
+//    global scratch.
 //
-// What bounds it on an H100.  A production block (n = 65536, z = 2048,
-// ~110 base edges) carries 256 KB of totals and ~0.9 MB of c2v messages,
-// more than the 227 KB of shared memory a CTA may hold, so both live in
-// global memory (the wrapper allocates them; this kernel zeroes them) and
-// each sweep streams ~4 MB per block through L2/HBM.  At B = 128 the state
-// (~155 MB) exceeds the 50 MB L2, so the kernel is memory-bound; the
-// per-lane row values (<= MAX_DC) stay in registers, every access is
-// coalesced along z, and a CTA stops as soon as its own block converges.
+// What bounds it on an H100.  At n = 65536 (z = 2048, nb = 32, mb 4-16) a
+// block's state is 256 KB of totals plus 14 * mb * z bytes of check state
+// and syndrome (~0.5 MB at mb = 9), so at most ~58 blocks fit the card's
+// shared memory at once.  A sweep is mb rows; each row is a round trip of
+// remote loads, the row's arithmetic, remote stores whose completion the
+// barrier's release waits for, and the cluster barrier itself.  Latency,
+// not HBM bytes nor arithmetic, bounds it: a row costs a few microseconds
+// whatever its width, a block spread over more SMs sweeps faster, and at
+// large B the number of resident clusters decides.  Hence two families:
+// wide CTAs (<= 512 threads, one per SM) for C <= 4 and narrow ones
+// (<= 256 threads, registers capped for 3 per SM) for C >= 8; the wrapper
+// picks C per batch (ldpc/cuda_bp.py::layered_plan) and chip_smoke.py
+// phase 3 times every C.  Registers and spills of each instantiation are
+// what -Xptxas -v prints (chip_smoke.py phase 2).
 //
 // Exactness (held to the plain PyTorch decoder bit for bit):
 //  * FMA contraction: the reference rounds alpha*min and the subtraction
@@ -36,8 +66,8 @@
 //  * Operand order: v2c = t - c2v, delta = new - c2v, totals = t + delta.
 //  * sign(0) = +1: a value counts as negative only when x < 0 (so -0.0 is
 //    non-negative); the sign of a zero message follows the same product.
-//  * Leave-one-out min through (min1, min2, argmin) is value-exact: float
-//    min is exact.
+//  * Leave-one-out min through (min1, min2, argmin) with the strict `<` tie
+//    rule is value-exact: float min is exact.
 //  * Iterations: 0 if the channel LLRs already satisfy the syndrome;
 //    otherwise the 1-based sweep whose fused flag first holds, or max_iters.
 //    Bits are totals < 0 after that sweep (or after the last one).
@@ -47,75 +77,263 @@
 #include <stdint.h>
 
 #define MAX_DC 32
+#define MAX_CLUSTER 16
+// Two families of instantiations.  Wide: up to 512 threads, one CTA per SM
+// (C <= 4: a CTA's share of a production block's state takes most of the
+// SM's shared memory).  Narrow: up to 256 threads with registers capped so
+// that 3 CTAs share an SM (C >= 8: more clusters resident at large B).
+#define WIDE_THREADS 512
+#define NARROW_THREADS 256
+#define NARROW_FROM_CLUSTER 8
 
-extern "C" __global__ void __launch_bounds__(512, 1)
+// Shared-memory layout of one CTA (zc = z / C lanes): the code table, three
+// flag words (+1 pad), totals (nb, zc), min1, min2, sign words (mb, zc),
+// then argmin and syndrome bytes (mb, zc).
+struct Layout {
+  size_t flag, tot, min1, min2, sgn, amin, syn, total;
+};
+
+__host__ __device__ inline Layout layout(int mb, int nb, int zc, int E) {
+  Layout L;
+  const size_t ntab = (size_t)(mb + 1 + 2 * E);
+  L.flag = ((ntab + 3) / 4) * 16;
+  L.tot = L.flag + 16;
+  L.min1 = L.tot + 4 * (size_t)nb * zc;
+  L.min2 = L.min1 + 4 * (size_t)mb * zc;
+  L.sgn = L.min2 + 4 * (size_t)mb * zc;
+  L.amin = L.sgn + 4 * (size_t)mb * zc;
+  L.syn = L.amin + (size_t)mb * zc;
+  L.total = L.syn + (size_t)mb * zc;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The shared::cluster address of local shared address `a` in CTA `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// Shared-memory accesses of the decoder state.  CL: the state is spread
+// over a cluster and addresses are shared::cluster ones (from mapa); else
+// one CTA holds it all and addresses are the CTA's own.  All are volatile
+// asm, so they keep their order relative to each other and the barriers.
+template <bool CL>
+__device__ __forceinline__ uint32_t at_rank(uint32_t a, uint32_t rank) {
+  if constexpr (CL) return mapa(a, rank);
+  return a;
+}
+
+template <bool CL>
+__device__ __forceinline__ float ld_state(uint32_t a) {
+  float v;
+  if constexpr (CL)
+    asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a));
+  else
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
+  return v;
+}
+
+template <bool CL>
+__device__ __forceinline__ uint32_t ld_flag(uint32_t a) {
+  uint32_t v;
+  if constexpr (CL)
+    asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(a));
+  else
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+
+template <bool CL>
+__device__ __forceinline__ void st_state(uint32_t a, float v) {
+  if constexpr (CL)
+    asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(a), "f"(v));
+  else
+    asm volatile("st.shared.f32 [%0], %1;" :: "r"(a), "f"(v));
+}
+
+// Every thread of the cluster (CL) or of the CTA: writes to the state
+// before it are visible to every read after it.
+template <bool CL>
+__device__ __forceinline__ void state_barrier() {
+  if constexpr (CL)
+    asm volatile("barrier.cluster.arrive.release;\n\t"
+                 "barrier.cluster.wait.acquire;" ::: "memory");
+  else
+    asm volatile("bar.sync 0;" ::: "memory");
+}
+
+// Clears rank 0's flag word `flag` (an address from at_rank<CL>(., 0))
+// when any lane of the calling warp saw a failed parity.  All 32 lanes
+// must call it.
+template <bool CL>
+__device__ __forceinline__ void flag_and(uint32_t flag, int ok) {
+  if (!__all_sync(0xffffffffu, ok) && (threadIdx.x & 31) == 0) {
+    if constexpr (CL)
+      asm volatile("red.shared::cluster.and.b32 [%0], %1;"
+                   :: "r"(flag), "r"(0u) : "memory");
+    else
+      asm volatile("red.shared.and.b32 [%0], %1;"
+                   :: "r"(flag), "r"(0u) : "memory");
+  }
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+
+// Where lane r's edge with shift s and column j reads its total: the
+// address of totals[j][(r + s) mod z] in the owner's CTA.
+template <bool CL>
+__device__ __forceinline__ uint32_t total_addr(uint32_t tot, int r, int s,
+                                               int j, int z, int zc,
+                                               int zc_log2) {
+  int p = r + s;
+  if (p >= z) p -= z;
+  uint32_t owner = 0;
+  if constexpr (CL) {
+    owner = (uint32_t)(p >> zc_log2);
+    p &= zc - 1;
+  }
+  return at_rank<CL>(tot + 4u * (uint32_t)(j * zc + p), owner);
+}
+
+template <int DMAX, bool CL, int NT, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
 bp_layered_kernel(const float* __restrict__ llr,      // (B, nb*z)
                   const uint8_t* __restrict__ syn,    // (B, mb*z), 0/1
                   const int* __restrict__ tables,     // row_start[mb+1],
                                                       // col[E], shift[E]
-                  float* __restrict__ totals,         // (B, nb*z) scratch
-                  float* __restrict__ c2v,            // (B, E*z) scratch
                   uint8_t* __restrict__ bits,         // (B, nb*z)
                   uint8_t* __restrict__ converged,    // (B,)
                   int32_t* __restrict__ iterations,   // (B,)
-                  int mb, int nb, int z, int E, int max_iters, float alpha) {
-  extern __shared__ int s_tab[];
+                  int mb, int nb, int z, int E, int max_iters, float alpha,
+                  int zc_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = (int)cluster_size();
+  const uint32_t rank = cluster_rank();
+  const int zc = z / C;
+  const int c0 = (int)rank * zc;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int ntab = mb + 1 + 2 * E;
-  for (int i = tid; i < ntab; i += nt) s_tab[i] = tables[i];
+  const Layout L = layout(mb, nb, zc, E);
+  int* s_tab = (int*)smem;
+  uint32_t* s_flag = (uint32_t*)(smem + L.flag);
+  float* s_tot = (float*)(smem + L.tot);
+  float* s_min1 = (float*)(smem + L.min1);
+  float* s_min2 = (float*)(smem + L.min2);
+  uint32_t* s_sgn = (uint32_t*)(smem + L.sgn);
+  uint8_t* s_amin = smem + L.amin;
+  uint8_t* s_syn = smem + L.syn;
   const int* row_start = s_tab;
   const int* scol = s_tab + mb + 1;
   const int* sshift = scol + E;
+  const uint32_t tot = smem_addr(s_tot);
+  const uint32_t flag = smem_addr(s_flag);
 
-  const size_t b = blockIdx.x;
+  const size_t b = cluster_id();
   const int n = nb * z;
-  const float* L = llr + b * n;
-  const uint8_t* S = syn + b * (size_t)(mb * z);
-  float* T = totals + b * n;
-  float* C = c2v + b * (size_t)E * z;
+  const float* Lb = llr + b * n;
+  const uint8_t* Sb = syn + b * (size_t)(mb * z);
   uint8_t* X = bits + b * n;
 
-  for (int v = tid; v < n; v += nt) T[v] = L[v];
-  for (int v = tid; v < E * z; v += nt) C[v] = 0.0f;
-  __syncthreads();
+  const int ntab = mb + 1 + 2 * E;
+  for (int i = tid; i < ntab; i += nt) s_tab[i] = tables[i];
+  if (tid < 3) s_flag[tid] = 1u;
+  for (int v = tid; v < nb * zc; v += nt) {
+    const int j = v / zc, q = v - j * zc;
+    s_tot[v] = Lb[j * z + c0 + q];
+  }
+  for (int v = tid; v < mb * zc; v += nt) {
+    const int i = v / zc, q = v - i * zc;
+    s_min1[v] = 0.0f;
+    s_min2[v] = 0.0f;
+    s_sgn[v] = 0u;
+    s_amin[v] = 0;
+    s_syn[v] = Sb[i * z + c0 + q];
+  }
+  // Every CTA of the cluster has started and loaded its share.
+  state_barrier<CL>();
 
-  // Exact syndrome check of the channel hard decision.
-  int ok = 1;
+  // Exact syndrome check of the channel hard decision (flag slot 0).
+  int ok_t = 1;
   for (int i = 0; i < mb; ++i) {
     const int s0 = row_start[i], d = row_start[i + 1] - s0;
-    for (int r = tid; r < z; r += nt) {
-      int par = S[i * z + r];
+    for (int q = tid; q < zc; q += nt) {
+      const int r = c0 + q;
+      int par = s_syn[i * zc + q];
       for (int k = 0; k < d; ++k) {
-        int p = r + sshift[s0 + k];
-        if (p >= z) p -= z;
-        par ^= (T[scol[s0 + k] * z + p] < 0.0f);
+        const float t = ld_state<CL>(total_addr<CL>(
+            tot, r, sshift[s0 + k], scol[s0 + k], z, zc, zc_log2));
+        par ^= (t < 0.0f);
       }
-      ok &= (par == 0);
+      ok_t &= (par == 0);
     }
   }
-  ok = __syncthreads_and(ok);
+  const uint32_t flag0 = at_rank<CL>(flag, 0);
+  flag_and<CL>(flag0, ok_t);
+  state_barrier<CL>();
+  int ok = ld_flag<CL>(flag0) != 0u;
 
   int it = 0;
   while (!ok && it < max_iters) {
-    int sweep_ok = 1;
+    // This sweep's flag slot; the next sweep's slot was last read before
+    // the previous sweep's first barrier, so rank 0 may reset it now.
+    const uint32_t slot = at_rank<CL>(flag + 4u * ((it + 1) % 3), 0);
+    if (rank == 0 && tid == 0) s_flag[(it + 2) % 3] = 1u;
+    ok_t = 1;
     for (int i = 0; i < mb; ++i) {
       const int s0 = row_start[i], d = row_start[i + 1] - s0;
-      for (int r = tid; r < z; r += nt) {
-        float t[MAX_DC], c[MAX_DC];
-        const int cs = S[i * z + r];
-        int par = cs, sgn_all = 0, amin = -1;
+      for (int q = tid; q < zc; q += nt) {
+        const int r = c0 + q;
+        const int idx = i * zc + q;
+        const int cs = s_syn[idx];
+        const uint32_t sg_old = s_sgn[idx];
+        const int am_old = s_amin[idx];
+        const float m1_old = __fmul_rn(alpha, s_min1[idx]);
+        const float m2_old = __fmul_rn(alpha, s_min2[idx]);
+        uint32_t addr[DMAX];
+        float t[DMAX];
+#pragma unroll
+        for (int k = 0; k < DMAX; ++k) {
+          if (k < d) {
+            addr[k] = total_addr<CL>(tot, r, sshift[s0 + k], scol[s0 + k],
+                                     z, zc, zc_log2);
+            t[k] = ld_state<CL>(addr[k]);
+          }
+        }
+        int par = cs, sgn_all = 0, amin = 255;
+        uint32_t vneg = 0u;
         float min1 = INFINITY, min2 = INFINITY;
 #pragma unroll
-        for (int k = 0; k < MAX_DC; ++k) {
+        for (int k = 0; k < DMAX; ++k) {
           if (k < d) {
-            int p = r + sshift[s0 + k];
-            if (p >= z) p -= z;
-            t[k] = T[scol[s0 + k] * z + p];
-            c[k] = C[(s0 + k) * z + r];
+            const float mo = (k == am_old) ? m2_old : m1_old;
+            const float c = ((sg_old >> k) & 1u) ? -mo : mo;
             par ^= (t[k] < 0.0f);
-            const float m = __fsub_rn(t[k], c[k]);
-            sgn_all ^= (m < 0.0f);
+            const float m = __fsub_rn(t[k], c);
+            const int neg = (m < 0.0f);
+            sgn_all ^= neg;
+            vneg |= (uint32_t)neg << k;
             const float a = fabsf(m);
             if (a < min1) {
               min2 = min1;
@@ -126,47 +344,173 @@ bp_layered_kernel(const float* __restrict__ llr,      // (B, nb*z)
             }
           }
         }
-        sweep_ok &= (par == 0);
+        ok_t &= (par == 0);
+        const uint32_t sg_new = ((cs ^ sgn_all) ? 0xffffffffu : 0u) ^ vneg;
+        const float m1_new = __fmul_rn(alpha, min1);
+        const float m2_new = __fmul_rn(alpha, min2);
 #pragma unroll
-        for (int k = 0; k < MAX_DC; ++k) {
+        for (int k = 0; k < DMAX; ++k) {
           if (k < d) {
-            const int sk = (__fsub_rn(t[k], c[k]) < 0.0f);
-            const float mag = __fmul_rn(alpha, k == amin ? min2 : min1);
-            const float nw = (cs ^ sgn_all ^ sk) ? -mag : mag;
-            const float delta = __fsub_rn(nw, c[k]);
-            int p = r + sshift[s0 + k];
-            if (p >= z) p -= z;
-            C[(s0 + k) * z + r] = nw;
-            T[scol[s0 + k] * z + p] = __fadd_rn(t[k], delta);
+            const float mo = (k == am_old) ? m2_old : m1_old;
+            const float c = ((sg_old >> k) & 1u) ? -mo : mo;
+            const float mn = (k == amin) ? m2_new : m1_new;
+            const float nw = ((sg_new >> k) & 1u) ? -mn : mn;
+            st_state<CL>(addr[k], __fadd_rn(t[k], __fsub_rn(nw, c)));
           }
         }
+        s_min1[idx] = min1;
+        s_min2[idx] = min2;
+        s_sgn[idx] = sg_new;
+        s_amin[idx] = (uint8_t)amin;
       }
-      __syncthreads();
+      if (i == mb - 1) flag_and<CL>(slot, ok_t);
+      state_barrier<CL>();
     }
     ++it;
-    ok = __syncthreads_and(sweep_ok);
+    ok = ld_flag<CL>(slot) != 0u;
   }
 
-  for (int v = tid; v < n; v += nt) X[v] = (T[v] < 0.0f);
-  if (tid == 0) {
+  for (int v = tid; v < nb * zc; v += nt) {
+    const int j = v / zc, q = v - j * zc;
+    X[j * z + c0 + q] = (s_tot[v] < 0.0f);
+  }
+  if (rank == 0 && tid == 0) {
     converged[b] = (uint8_t)ok;
     iterations[b] = it;
   }
+  // No CTA leaves while a peer may still read its flag or totals.
+  if constexpr (CL) state_barrier<CL>();
 }
 
-// Plain C entry point (bound with ctypes).  Launches on `stream`, does not
-// synchronise, and returns the launch's cudaError_t (0 on success), or -1
-// when a base row is wider than MAX_DC.
+typedef void (*KernelFn)(const float*, const uint8_t*, const int*, uint8_t*,
+                         uint8_t*, int32_t*, int, int, int, int, int, float,
+                         int);
+
+static int max_threads(int cluster) {
+  return cluster >= NARROW_FROM_CLUSTER ? NARROW_THREADS : WIDE_THREADS;
+}
+
+// The instantiation for rows of at most `max_dc` edges at `cluster` CTAs
+// per block: one CTA (local shared memory) or a cluster (DSMEM); wide or
+// narrow.  The narrow one at 32 edges keeps 2 CTAs per SM: at 3 its
+// registers would spill.
+static KernelFn kernel_for(int max_dc, int cluster) {
+  if (cluster == 1) {
+    if (max_dc <= 8) return bp_layered_kernel<8, false, WIDE_THREADS, 1>;
+    if (max_dc <= 16) return bp_layered_kernel<16, false, WIDE_THREADS, 1>;
+    return bp_layered_kernel<MAX_DC, false, WIDE_THREADS, 1>;
+  }
+  if (cluster < NARROW_FROM_CLUSTER) {
+    if (max_dc <= 8) return bp_layered_kernel<8, true, WIDE_THREADS, 1>;
+    if (max_dc <= 16) return bp_layered_kernel<16, true, WIDE_THREADS, 1>;
+    return bp_layered_kernel<MAX_DC, true, WIDE_THREADS, 1>;
+  }
+  if (max_dc <= 8) return bp_layered_kernel<8, true, NARROW_THREADS, 3>;
+  if (max_dc <= 16) return bp_layered_kernel<16, true, NARROW_THREADS, 3>;
+  return bp_layered_kernel<MAX_DC, true, NARROW_THREADS, 2>;
+}
+
+static int log2_exact(int x) {
+  int k = 0;
+  while ((1 << k) < x) ++k;
+  return (1 << k) == x ? k : -1;
+}
+
+// The kernel's attributes for a launch of `cluster` CTAs per block with
+// `smem` bytes of dynamic shared memory each.
+static cudaError_t set_attributes(KernelFn fn, int cluster, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(
+        (const void*)fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+static void launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                          int B, int cluster, int threads, int smem,
+                          void* stream) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)(B * cluster), 1, 1);
+  cfg->blockDim = dim3((unsigned)threads, 1, 1);
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+static bool valid_shape(int max_dc, int z, int cluster, int threads) {
+  return max_dc <= MAX_DC && cluster >= 1 && cluster <= MAX_CLUSTER &&
+         z % cluster == 0 && (cluster == 1 || log2_exact(z / cluster) >= 0) &&
+         threads >= 32 && threads <= max_threads(cluster) &&
+         threads % 32 == 0;
+}
+
+// Bytes of dynamic shared memory one CTA needs for a code of mb base rows,
+// nb base columns, circulant size z and E base edges split over `cluster`
+// CTAs, or -1 when z does not split.
+extern "C" long long qtpu_bp_layered_smem(int mb, int nb, int z, int E,
+                                          int cluster) {
+  if (cluster < 1 || z % cluster) return -1;
+  return (long long)layout(mb, nb, z / cluster, E).total;
+}
+
+// The most dynamic shared memory a CTA may opt in to on `device`.
+extern "C" int qtpu_bp_layered_smem_optin(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return v;
+}
+
+// cudaOccupancyMaxActiveClusters for the kernel of `max_dc` at this
+// configuration on the current device: how many clusters can be resident at
+// once (0: none can be scheduled), or minus the cudaError_t.
+extern "C" int qtpu_bp_layered_max_clusters(int max_dc, int z, int cluster,
+                                            int threads, int smem) {
+  if (!valid_shape(max_dc, z, cluster, threads)) return -1;
+  KernelFn fn = kernel_for(max_dc, cluster);
+  cudaError_t e = set_attributes(fn, cluster, smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  launch_config(&cfg, &attr, 1, cluster, threads, smem, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (const void*)fn, &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  return n;
+}
+
+// Plain C entry point (bound with ctypes).  Launches B clusters of
+// `cluster` CTAs on `stream`, does not synchronise, and returns the
+// launch's cudaError_t (0 on success), or -1 for a shape the kernel does
+// not take (a row wider than MAX_DC, a cluster that does not split z into
+// power-of-two parts, a thread count that is not a multiple of 32 up to
+// the family's limit (512 threads below 8 CTAs per cluster, else 256), or
+// less shared memory than the layout needs).
 extern "C" int qtpu_bp_layered(const float* llr, const uint8_t* syn,
-                               const int* tables, float* totals, float* c2v,
-                               uint8_t* bits, uint8_t* converged,
-                               int32_t* iterations, int B, int mb, int nb,
-                               int z, int E, int max_dc, int max_iters,
-                               float alpha, int threads, void* stream) {
-  if (max_dc > MAX_DC || threads > 512 || B <= 0) return -1;
-  const size_t smem = (size_t)(mb + 1 + 2 * E) * sizeof(int);
-  bp_layered_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      llr, syn, tables, totals, c2v, bits, converged, iterations, mb, nb, z,
-      E, max_iters, alpha);
+                               const int* tables, uint8_t* bits,
+                               uint8_t* converged, int32_t* iterations, int B,
+                               int mb, int nb, int z, int E, int max_dc,
+                               int max_iters, float alpha, int cluster,
+                               int threads, int smem, void* stream) {
+  if (B <= 0 || !valid_shape(max_dc, z, cluster, threads) ||
+      (long long)smem < qtpu_bp_layered_smem(mb, nb, z, E, cluster))
+    return -1;
+  KernelFn fn = kernel_for(max_dc, cluster);
+  cudaError_t e = set_attributes(fn, cluster, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  launch_config(&cfg, &attr, B, cluster, threads, smem, stream);
+  const int zc_log2 = cluster == 1 ? -1 : log2_exact(z / cluster);
+  e = cudaLaunchKernelEx(&cfg, fn, llr, syn, tables, bits, converged,
+                         iterations, mb, nb, z, E, max_iters, alpha, zc_log2);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qtpu_torch.devices import DEFAULT_DEVICE, resolve_device
 from qtpu_torch.ldpc.codes import RateLadder, RateStep, make_rate_ladder
 from qtpu_torch.ldpc.decode import BIG_LLR
 from qtpu_torch.ldpc.encode import make_batch_encoder
@@ -46,7 +47,8 @@ def _positions(step: RateStep):
 def measure_fer(step: RateStep, qber: float, blocks: int = 256, seed: int = 0,
                 max_iters: int = 60, alg: str = "minsum",
                 extra_short_bits: int = 0, alpha: float = 0.8125,
-                device="cpu", _cache: dict = {}) -> tuple[float, float]:
+                device=DEFAULT_DEVICE,
+                _cache: dict = {}) -> tuple[float, float]:
     """Simulate `blocks` reconciliations at the given true QBER on
     ``device``.
 
@@ -60,7 +62,7 @@ def measure_fer(step: RateStep, qber: float, blocks: int = 256, seed: int = 0,
     the remaining (true payload) positions only.
     """
     from qtpu_torch.window_programs import _pick_decoder
-    device = torch.device(device)
+    device = resolve_device(device)
     code = step.code
     ck = (id(step.code), max_iters, alg, alpha)
     if ck not in _cache:
@@ -97,7 +99,8 @@ def measure_fer(step: RateStep, qber: float, blocks: int = 256, seed: int = 0,
 def calibrate_ladder(ladder: RateLadder, fer_target: float = 0.05,
                      blocks: int = 256, qber_grid=None,
                      max_iters: int = 60, alg: str = "minsum",
-                     verbose: bool = False, device="cpu") -> tuple[float, ...]:
+                     verbose: bool = False,
+                     device=DEFAULT_DEVICE) -> tuple[float, ...]:
     """Largest grid QBER per rung with FER <= fer_target (0.0 if none)."""
     if qber_grid is None:
         qber_grid = [x / 400 for x in range(1, 45)]  # 0.25% .. 11%
@@ -124,7 +127,7 @@ def ceiling_bisect(step: RateStep, lo: float, hi: float,
                    fer_target: float = 0.05, blocks: int = 256,
                    tol: float = 5e-4, max_iters: int = 60,
                    alg: str = "layered", extra_short_bits: int = 0,
-                   seed_base: int = 0, device="cpu") -> float:
+                   seed_base: int = 0, device=DEFAULT_DEVICE) -> float:
     """Largest QBER with FER <= target, by bisection to ``tol``.  Two
     measurements at the same q use different seeds, so a noisy FER near the
     waterfall bisects to the conservative side on average."""
@@ -152,7 +155,8 @@ SHORT_FRACS = (0.0, 0.05, 0.10, 0.15, 0.20, 0.25)
 def calibrate_short(ladder: RateLadder, fracs=SHORT_FRACS,
                     fer_target: float = 0.05, blocks: int = 256,
                     qber_grid=None, max_iters: int = 60,
-                    alg: str = "minsum", verbose: bool = False, device="cpu"
+                    alg: str = "minsum", verbose: bool = False,
+                    device=DEFAULT_DEVICE
                     ) -> tuple[tuple[float, ...], tuple[tuple[float, ...], ...]]:
     """Ceiling-vs-extra-shortening curves for fine rate adaptation.
 

@@ -68,6 +68,7 @@ import torch
 from qtpu_torch import pa as pa_mod
 from qtpu_torch import prng
 from qtpu_torch.accounting import LEDGER_FIELDS, Ledger
+from qtpu_torch.devices import DEFAULT_DEVICE, resolve_device
 from qtpu_torch.ldpc.codes import RateLadder, make_rate_ladder
 from qtpu_torch.messages import (Abort, Message, MsgType, RateSelect,
                            RetryDisclose, Syndromes, VerifyAck, WindowOpen)
@@ -259,9 +260,9 @@ class _Party:
     """Shared machinery: code, ladder, per-rate device programs, stream."""
 
     def __init__(self, config: PipelineConfig, session_seed: int,
-                 device="cpu", mesh=None):
+                 device=DEFAULT_DEVICE, mesh=None):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._mesh = mesh
         self.ladder: RateLadder = make_rate_ladder(
             config.n, config.dv, config.target_rates, seed=config.code_seed,
@@ -819,7 +820,8 @@ class AliceSession(_Party):
     inline QBER disclosure."""
 
     def __init__(self, config: PipelineConfig, session_seed: int,
-                 link, private_seed: int = 0xA11CE, device="cpu"):
+                 link, private_seed: int = 0xA11CE,
+                 device=DEFAULT_DEVICE):
         super().__init__(config, session_seed, device)
         self.link = link
         # Alice-private randomness for punctured columns (derived per
@@ -1011,7 +1013,7 @@ class BobSession(_Party):
                                  f"device {mesh.devices[0]}")
             device = mesh.devices[0]
         super().__init__(config, session_seed,
-                         "cpu" if device is None else device, mesh)
+                         DEFAULT_DEVICE if device is None else device, mesh)
         self.last_gled = None
         self.gled_by_window: dict[int, np.ndarray] = {}
         self.link = link
@@ -1466,7 +1468,7 @@ class BobSession(_Party):
 
 def run_loopback(config: PipelineConfig, alice_bits, bob_bits,
                  session_seed: int = 0x5E55, wire: bool = False,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
     """Two-party loopback integration run (SURVEY.md §5.3): both sessions in
     one process; returns (alice, bob) sessions.  wire=True serializes every
     message through the packed byte format (protocol-conformance mode);

@@ -62,7 +62,7 @@ def test_chain_matches_reference(reference, wire):
     ta, tb = tchain.run_chain_loopback(_cfg(tchain, tpipe),
                                        num_windows=WINDOWS,
                                        source=TSource(**SRC), seed=3,
-                                       wire=wire)
+                                       wire=wire, device="cpu")
     assert tb.offset == jb.offset
     assert abs(tb.offset - int(round(4_321.0 * 8))) < 60
     assert tb.sift_stats == jb.sift_stats

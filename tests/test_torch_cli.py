@@ -120,8 +120,10 @@ def test_auth_session_ledgers_charge_auth_bits():
     a_bits, b_bits = _sifted(0, 40_000)
     la, lb = make_loopback_pair()
     cfg = tpipe.PipelineConfig(n=1024, blocks_per_window=4, qber_test_bits=512)
-    alice = tpipe.AliceSession(cfg, 7, AuthedLink(la, 0xC0FFEE, True))
-    bob = tpipe.BobSession(cfg, 7, AuthedLink(lb, 0xC0FFEE, False))
+    alice = tpipe.AliceSession(cfg, 7, AuthedLink(la, 0xC0FFEE, True),
+                               device="cpu")
+    bob = tpipe.BobSession(cfg, 7, AuthedLink(lb, 0xC0FFEE, False),
+                           device="cpu")
     alice.push_sifted(a_bits)
     bob.push_sifted(b_bits)
     tpipe.pump_sessions(alice, bob, alice.link, bob.link)
@@ -175,7 +177,7 @@ def test_keystore_corrupt_magic_rejected(tmp_path):
 def test_keystore_records_from_session(tmp_path):
     a_bits, b_bits = _sifted(1, 20_000)
     cfg = tpipe.PipelineConfig(n=1024, blocks_per_window=2, qber_test_bits=256)
-    alice, bob = tpipe.run_loopback(cfg, a_bits, b_bits)
+    alice, bob = tpipe.run_loopback(cfg, a_bits, b_bits, device="cpu")
     ra = keystore.records_from_session(alice)
     rb = keystore.records_from_session(bob)
     assert len(ra) == len(rb) > 0
@@ -204,7 +206,8 @@ def test_keystore_stream_pa_records_round_trip(tmp_path):
     a_bits, b_bits = _sifted(3, 60_000)
     cfg = tpipe.PipelineConfig(n=1024, blocks_per_window=8, qber_test_bits=512,
                                pa_mode="stream", pa_stream_windows=2)
-    alice, bob = tpipe.run_loopback(cfg, a_bits, b_bits, session_seed=11)
+    alice, bob = tpipe.run_loopback(cfg, a_bits, b_bits, session_seed=11,
+                                    device="cpu")
     recs = keystore.records_from_session(bob)
     assert len(recs) >= 2 and all(r.block_index < 0 for r in recs)
     path = str(tmp_path / "stream.bin")
@@ -265,11 +268,13 @@ def _ckpt_cfg(mod):
 
 def test_checkpoint_roundtrip():
     a_bits, b_bits = _sifted(0, 20_000)
-    alice, bob = tpipe.run_loopback(_ckpt_cfg(tpipe), a_bits, b_bits)
+    alice, bob = tpipe.run_loopback(_ckpt_cfg(tpipe), a_bits, b_bits,
+                                    device="cpu")
     state = json.loads(json.dumps(bob.checkpoint_state()))
     assert state["window_id"] == bob.window_id
     assert state["ledger"] == bob.ledger.as_dict()
-    fresh = tpipe.BobSession(_ckpt_cfg(tpipe), 0x5E55, make_loopback_pair()[1])
+    fresh = tpipe.BobSession(_ckpt_cfg(tpipe), 0x5E55,
+                             make_loopback_pair()[1], device="cpu")
     fresh.restore_state(state)
     assert fresh.window_id == bob.window_id
     assert fresh.ledger.as_dict() == bob.ledger.as_dict()
@@ -277,12 +282,18 @@ def test_checkpoint_roundtrip():
                                   bob.stream.snapshot_host())
 
 
+def _cpu(mod):
+    """``device="cpu"`` for the port's entry points (the reference's take
+    no device)."""
+    return {"device": "cpu"} if mod.__name__.startswith("qtpu_torch") else {}
+
+
 def _continue(pipe, link_mod, states, extra, seed=0x5E55):
     """Fresh sessions of ``pipe`` restored from (alice, bob) checkpoint
     states, fed ``extra`` sifted bits and pumped to quiescence."""
     la, lb = link_mod.make_loopback_pair()
-    alice = pipe.AliceSession(_ckpt_cfg(pipe), seed, la)
-    bob = pipe.BobSession(_ckpt_cfg(pipe), seed, lb)
+    alice = pipe.AliceSession(_ckpt_cfg(pipe), seed, la, **_cpu(pipe))
+    bob = pipe.BobSession(_ckpt_cfg(pipe), seed, lb, **_cpu(pipe))
     alice.restore_state(states[0])
     bob.restore_state(states[1])
     alice.push_sifted(extra[0])
@@ -302,7 +313,7 @@ def test_checkpoint_restores_across_packages(writer):
         tpipe, (jpipe, jlink))
     a_bits, b_bits = _sifted(4, 36_000, 0.03)
     alice, bob = src.run_loopback(_ckpt_cfg(src), a_bits[:20_000],
-                                  b_bits[:20_000])
+                                  b_bits[:20_000], **_cpu(src))
     w0 = bob.window_id
     assert w0 >= 2
     states = [json.loads(json.dumps(p.checkpoint_state()))
@@ -532,11 +543,12 @@ def test_calibrate_ladder_and_bisect_small():
     from qtpu_torch.ldpc.calibrate import calibrate_ladder, ceiling_bisect
     from qtpu_torch.ldpc.codes import make_rate_ladder
     ladder = make_rate_ladder(1024, family="regular", alg="minsum")
-    ceil = calibrate_ladder(ladder, blocks=16, qber_grid=[0.01, 0.05, 0.2])
+    ceil = calibrate_ladder(ladder, blocks=16, qber_grid=[0.01, 0.05, 0.2],
+                            device="cpu")
     assert len(ceil) == len(ladder.steps)
     assert ceil[0] >= 0.01 and all(c < 0.2 for c in ceil)
     c = ceiling_bisect(ladder.steps[0], 0.01, 0.2, blocks=16, tol=0.02,
-                       alg="minsum")
+                       alg="minsum", device="cpu")
     assert 0.01 <= c < 0.2
 
 

@@ -7,11 +7,15 @@ switched off):
     QTPU_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -m cuda
 
 Tolerance: exact — each kernel against its plain PyTorch decoder (bits,
-iterations, converged), a session on the card against the same session on
+iterations, converged; the layered kernel at every native3 rung of
+n = 65536, hence at every cluster size the production ladder uses), a
+session on the card against the same session on
 the CPU (final keys, ledgers, per-window metrics), and the sift functions
 on the card against the CPU on the same events (residuals to 1e-5
 relative: their float32 division may round differently on the card).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -70,6 +74,95 @@ def test_kernel_matches_plain(dev, which):
     assert cuda_bp.launches == dict(before, bp_layered=before["bp_layered"]
                                     + 1)
     _same(got, make_layered_decoder(code, 40)(llr, syn))
+
+
+@functools.cache
+def _native3_65536():
+    return make_rate_ladder(65536, family="native3", alg="layered")
+
+
+@pytest.mark.parametrize("B", [1, 8, 33])
+@pytest.mark.parametrize("rung", range(10))
+def test_layered_kernel_every_native3_rung(dev, rung, B):
+    """Every production rung (mb 4-16, so cluster sizes 2-8) at a single
+    block, a retry round and more blocks than one wave of clusters."""
+    steps = _native3_65536().steps
+    assert len(steps) == 10
+    step = steps[rung]
+    llr, syn = _inputs(step.code, np.linspace(0.02, 0.04, B), 40 + rung, dev,
+                       step.punct_cols)
+    before = cuda_bp.launches["bp_layered"]
+    got = cuda_bp.make_cuda_decoder(step.code, 60)(llr, syn)
+    torch.cuda.synchronize()
+    assert cuda_bp.launches["bp_layered"] == before + 1
+    _same(got, make_layered_decoder(step.code, 60)(llr, syn))
+
+
+def test_layered_kernel_block_running_every_sweep(dev):
+    """B = 8 on the highest rung above its ceiling: blocks run all 60
+    sweeps and end unconverged, bit for bit with the plain decoder."""
+    step = _native3_65536().steps[-1]
+    llr, syn = _inputs(step.code, np.full(8, 0.05), 7, dev, step.punct_cols)
+    ref = make_layered_decoder(step.code, 60)(llr, syn)
+    assert int(ref.iterations.max()) == 60 and not bool(ref.converged.all())
+    _same(cuda_bp.make_cuda_decoder(step.code, 60)(llr, syn), ref)
+
+
+def test_layered_kernel_regular_4096_one_cta(dev):
+    """An n = 4096 code's whole state fits one CTA: cluster size 1."""
+    code = make_regular_code(4096)
+    assert cuda_bp.layered_plan(code, dev, 64).cluster == 1
+    llr, syn = _inputs(code, np.linspace(0.005, 0.07, 64), 8, dev)
+    _same(cuda_bp.make_cuda_decoder(code, 60)(llr, syn),
+          make_layered_decoder(code, 60)(llr, syn))
+
+
+def test_layered_plan_and_memory(dev):
+    """The production plan: a cluster whose CTAs fit the opt-in shared
+    memory and that the card can schedule (the C occupancy query); one
+    decode allocates its outputs and nothing else."""
+    step = _native3_65536().steps[6]
+    plan = cuda_bp.layered_plan(step.code, dev, 128)
+    optin = cuda_bp._layered_lib().qtpu_bp_layered_smem_optin(0)
+    assert plan.cluster > 1 and plan.max_clusters > 0
+    assert 0 < plan.smem <= optin
+    B = 32
+    llr, syn = _inputs(step.code, np.full(B, 0.03), 9, dev, step.punct_cols)
+    dec = cuda_bp.make_cuda_decoder(step.code, 60)
+    dec(llr, syn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    res = dec(llr, syn)
+    torch.cuda.synchronize()
+    outputs = B * step.code.n + B + 4 * B
+    assert torch.cuda.max_memory_allocated(dev) - before <= outputs + (1 << 20)
+    del res
+
+
+def _one_row_code(z, nb, d=3):
+    """One base row of d edges over nb base columns."""
+    rows = np.zeros(d, np.int32)
+    cols = np.arange(d, dtype=np.int32)
+    return QCCode(z=z, mb=1, nb=nb, edge_row=rows, edge_col=cols,
+                  edge_shift=np.arange(d, dtype=np.int32) % z,
+                  row_edges=_group_edges(rows, 1),
+                  col_edges=_group_edges(cols, nb))
+
+
+def test_layered_kernel_raises_before_launch_on_shapes_it_cannot_take(dev):
+    """Totals of 2048 columns x z = 64 (512 KB) fit no cluster size with
+    z / C >= 32; a row of 33 edges exceeds the register arrays.  Both raise
+    and nothing launches."""
+    before = dict(cuda_bp.launches)
+    wide = _one_row_code(64, 2048)
+    llr = torch.zeros((2, wide.n), dtype=torch.float32, device=dev)
+    syn = torch.zeros((2, wide.m), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="fits no cluster size"):
+        cuda_bp.make_cuda_decoder(wide, 10)(llr, syn)
+    with pytest.raises(ValueError, match="degree 33"):
+        cuda_bp.make_cuda_decoder(_one_row_code(32, 40, d=33), 10)
+    assert cuda_bp.launches == before
 
 
 def _parallel_edge_code():

@@ -15,10 +15,13 @@ PyTorch on every device) is held to XLA and golden on the same batches,
 within the tolerance ``_assert_same_converged`` states.
 """
 
+import hypothesis.extra.numpy as hnp
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from qtpu.ldpc import golden
 from qtpu.ldpc.codes import make_rate_ladder as j_make_rate_ladder
@@ -28,7 +31,8 @@ from qtpu.ldpc.encode import make_batch_encoder
 from qtpu.ldpc.pallas_bp import make_pallas_decoder
 from qtpu_torch.ldpc import cuda_bp
 from qtpu_torch.ldpc.codes import code_from_reference, make_rate_ladder
-from qtpu_torch.ldpc.decode import make_flooding_decoder, make_layered_decoder
+from qtpu_torch.ldpc.decode import (_minsum_row, make_flooding_decoder,
+                                    make_layered_decoder)
 from qtpu_torch.window_programs import _pick_decoder
 
 MAX_ITERS = 40
@@ -133,6 +137,114 @@ def test_code_tables_row_order_and_parallel_edges():
     dup.edge_col[e1] = dup.edge_col[e0]
     with pytest.raises(ValueError, match="parallel"):
         cuda_bp.code_tables(dup)
+
+
+def test_code_tables_reject_rows_wider_than_max_dc():
+    """A row wider than the kernels' register arrays raises when the
+    decoder is made, before any launch."""
+    import qtpu_torch.ldpc.codes as tcodes
+    d = cuda_bp.MAX_DC + 1
+    rows = np.zeros(d, np.int32)
+    cols = np.arange(d, dtype=np.int32)
+    code = tcodes.QCCode(z=32, mb=1, nb=d, edge_row=rows, edge_col=cols,
+                         edge_shift=np.zeros(d, np.int32),
+                         row_edges=tcodes._group_edges(rows, 1),
+                         col_edges=tcodes._group_edges(cols, d))
+    for alg in ("layered", "minsum"):
+        with pytest.raises(ValueError, match=f"degree {d}"):
+            cuda_bp.make_cuda_decoder(code, MAX_ITERS, alg=alg)
+
+
+def _compact_check_state(msgs: torch.Tensor, syndrome: torch.Tensor):
+    """The layered kernel's check-node state of one base row
+    (``qtpu_torch/csrc/bp_layered.cu``) in plain PyTorch: from the row's v2c
+    messages ``msgs`` (d, lanes) float32 and the syndrome bits (lanes,),
+    ``(min1, min2, argmin, signs)`` — the two
+    smallest magnitudes (strict ``<``: the first of equal minima is the
+    argmin), the argmin slot, and per lane a word whose bit k is the sign of
+    c2v_k (syndrome XOR the sign of every message XOR the sign of msg k;
+    sign(0) = +1)."""
+    d, lanes = msgs.shape
+    min1 = torch.full((lanes,), float("inf"), dtype=torch.float32)
+    min2 = min1.clone()
+    amin = torch.full((lanes,), 255, dtype=torch.int64)
+    neg = msgs < 0
+    for k in range(d):
+        a = msgs[k].abs()
+        first = a < min1
+        second = ~first & (a < min2)
+        min2 = torch.where(first, min1, torch.where(second, a, min2))
+        min1 = torch.where(first, a, min1)
+        amin = torch.where(first, k, amin)
+    flip = (syndrome.to(torch.int64) ^ neg.to(torch.int64).sum(0)) & 1
+    weights = torch.tensor([1 << k for k in range(d)], dtype=torch.int64)
+    signs = (neg.to(torch.int64) * weights[:, None]).sum(0)
+    signs = signs ^ (flip * ((1 << d) - 1))
+    return min1, min2, amin, signs
+
+
+def _c2v_from_compact(min1, min2, amin, signs, d: int,
+                      alpha: float = 0.8125) -> torch.Tensor:
+    """Every c2v message (d, lanes) of a row rebuilt from its compact
+    state, as the layered kernel does: ``sign ? -m : m`` with
+    ``m = alpha * (k == argmin ? min2 : min1)``."""
+    out = []
+    a = torch.tensor(alpha, dtype=torch.float32)
+    for k in range(d):
+        m = a * torch.where(amin == k, min2, min1)
+        out.append(torch.where(((signs >> k) & 1).bool(), -m, m))
+    return torch.stack(out)
+
+
+# v2c magnitudes that make ties, signed zeros and subnormals likely.
+_V2C = st.one_of(
+    st.sampled_from([float(np.float32(x)) for x in
+                     (0.0, -0.0, 1.5, -1.5, 2.0, -2.0, 1e-40, -1e-40,
+                      3.4e38, -3.4e38)]),
+    st.floats(-1e6, 1e6, width=32))
+
+
+def _per_edge_c2v(msgs, syn, alpha):
+    """Every new c2v of a row in the per-edge form, in the plain decoder's
+    float32 operation order (``decode._minsum_row``); the leave-one-out
+    minimum of a row with one edge is +inf, as the kernels compute it."""
+    coset = 1.0 - 2.0 * syn.to(torch.float32)
+    if msgs.shape[0] > 1:
+        return torch.stack(_minsum_row(list(msgs), coset, alpha))
+    sign = torch.where(msgs[0] < 0, -1.0, 1.0)
+    return (alpha * coset * sign * sign * float("inf"))[None]
+
+
+@settings(max_examples=300, deadline=None)
+@given(d=st.integers(1, cuda_bp.MAX_DC), data=st.data())
+def test_compact_check_state_rebuilds_every_c2v(d, data):
+    """(min1, min2, argmin, sign bits) rebuild each c2v of a row bit for
+    bit (int32 views, so -0.0 != +0.0) against the per-edge form."""
+    msgs = torch.from_numpy(data.draw(hnp.arrays(np.float32, (d, 16),
+                                                 elements=_V2C)))
+    syn = torch.from_numpy(data.draw(hnp.arrays(
+        np.uint8, (16,), elements=st.integers(0, 1))))
+    want = _per_edge_c2v(msgs, syn, 0.8125)
+    got = _c2v_from_compact(*_compact_check_state(msgs, syn), d,
+                            0.8125)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
+
+
+def test_compact_check_state_initial_and_ties():
+    """The zero state rebuilds to +0.0 messages (the per-edge form's
+    initial c2v); equal minima keep the first as argmin."""
+    zeros = torch.zeros(4, dtype=torch.float32)
+    none = torch.zeros(4, dtype=torch.int64)
+    got = _c2v_from_compact(zeros, zeros, none, none, 6)
+    assert got.numpy().view(np.int32).tolist() == [[0] * 4] * 6
+    msgs = torch.tensor([[3.0], [-1.0], [1.0], [-0.0]])
+    min1, min2, amin, signs = _compact_check_state(
+        msgs, torch.tensor([1], dtype=torch.uint8))
+    assert (float(min1), float(min2), int(amin)) == (0.0, 1.0, 3)
+    # syndrome 1, one negative message (-1.0; -0.0 counts as +):
+    # signs = (1 ^ 1) ^ [0, 1, 0, 0] = 0b0010
+    assert int(signs) == 0b0010
 
 
 @pytest.fixture(scope="module", params=["regular", "mixed_r1"])

@@ -28,8 +28,8 @@ def _sessions(cfg, seed, total=20_000, qber=0.02, wire=True):
     a_bits = rng.integers(0, 2, total).astype(np.uint8)
     b_bits = a_bits ^ (rng.random(total) < qber).astype(np.uint8)
     la, lb = make_loopback_pair() if wire else make_direct_pair()
-    alice = AliceSession(cfg, seed, la)
-    bob = BobSession(cfg, seed, lb)
+    alice = AliceSession(cfg, seed, la, device="cpu")
+    bob = BobSession(cfg, seed, lb, device="cpu")
     alice.push_sifted(a_bits)
     bob.push_sifted(b_bits)
     return alice, bob, la, lb
@@ -298,8 +298,8 @@ def test_allfail_windows_kill_session():
     a_bits = rng.integers(0, 2, 40_000).astype(np.uint8)
     b_bits = rng.integers(0, 2, 40_000).astype(np.uint8)  # UNRELATED stream
     la, lb = make_loopback_pair()
-    alice = AliceSession(cfg, 25, la)
-    bob = BobSession(cfg, 25, lb)
+    alice = AliceSession(cfg, 25, la, device="cpu")
+    bob = BobSession(cfg, 25, lb, device="cpu")
     alice.push_sifted(a_bits)
     bob.push_sifted(b_bits)
     pump_sessions(alice, bob, la, lb, max_rounds=400)
@@ -374,6 +374,12 @@ def test_resurrect_after_later_window_finalized_stays_ordered(pa_mode):
         assert alice._stream_flushes >= 1
 
 
+def _cpu(mod):
+    """``device="cpu"`` for the port's entry points (the reference's take
+    no device)."""
+    return {"device": "cpu"} if mod.__name__.startswith("qtpu_torch") else {}
+
+
 def _abort_settled_flush(pipe, link):
     """Window 0 completes; window 1's RateSelect is lost and Alice aborts
     it before anything is consumed.  The abort settles the stream-PA range
@@ -385,8 +391,8 @@ def _abort_settled_flush(pipe, link):
     a_bits = rng.integers(0, 2, 20_000).astype(np.uint8)
     b_bits = a_bits ^ (rng.random(20_000) < 0.02).astype(np.uint8)
     la, lb = link.make_loopback_pair()
-    alice = pipe.AliceSession(cfg, 20, la)
-    bob = pipe.BobSession(cfg, 20, lb)
+    alice = pipe.AliceSession(cfg, 20, la, **_cpu(pipe))
+    bob = pipe.BobSession(cfg, 20, lb, **_cpu(pipe))
     alice.push_sifted(a_bits)
     bob.push_sifted(b_bits)
     alice.start_window()

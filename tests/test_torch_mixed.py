@@ -63,6 +63,12 @@ CONFIGS = {
 MESH = 8
 
 
+def _cpu(mod):
+    """``device="cpu"`` for the port's entry points (the reference's take
+    no device)."""
+    return {"device": "cpu"} if mod.__name__.startswith("qtpu_torch") else {}
+
+
 def _run(alice_pkg, bob_pkg, kind, blocks=4, bob_mesh=None):
     """Alice from ``alice_pkg`` (a (pipeline, link) pair), Bob from
     ``bob_pkg`` (on ``bob_mesh`` when given), over one byte channel;
@@ -77,9 +83,10 @@ def _run(alice_pkg, bob_pkg, kind, blocks=4, bob_mesh=None):
     a2b, b2a = collections.deque(), collections.deque()
     la = alink.LoopbackLink(a2b, b2a)
     lb = blink.LoopbackLink(b2a, a2b)
-    alice = apipe.AliceSession(apipe.PipelineConfig(**kw), 0x5E55, la)
+    alice = apipe.AliceSession(apipe.PipelineConfig(**kw), 0x5E55, la,
+                               **_cpu(apipe))
     bob = bpipe.BobSession(bpipe.PipelineConfig(**kw), 0x5E55, lb,
-                           mesh=bob_mesh)
+                           mesh=bob_mesh, **_cpu(bpipe))
     alice.push_sifted(a_bits)
     bob.push_sifted(b_bits)
     tpipe.pump_sessions(alice, bob, la, lb)

@@ -130,6 +130,12 @@ def test_stream_toeplitz_matches_golden_and_reference(N, m, seg):
                                 precision=precision) < 0.25
 
 
+def _cpu(mod):
+    """``device="cpu"`` for the port's entry points (the reference's take
+    no device)."""
+    return {"device": "cpu"} if mod.__name__.startswith("qtpu_torch") else {}
+
+
 def _run_stream(mod, seed=3, **kw):
     rng = np.random.default_rng(seed)
     total = 60_000
@@ -138,7 +144,8 @@ def _run_stream(mod, seed=3, **kw):
     cfg = mod.PipelineConfig(n=1024, blocks_per_window=8, qber_test_bits=512,
                              pa_mode="stream", pa_stream_windows=2,
                              max_inflight_windows=1, **kw)
-    return mod.run_loopback(cfg, a_bits, b_bits, session_seed=11, wire=True)
+    return mod.run_loopback(cfg, a_bits, b_bits, session_seed=11, wire=True,
+                            **_cpu(mod))
 
 
 def test_session_stream_pa_matches_reference():

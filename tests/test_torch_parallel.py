@@ -194,8 +194,8 @@ def _port_session(cfg, a_bits, b_bits, mesh=None):
     """__graft_entry__._run_session on the port: the same wire loopback and
     the same pump (a blocking flush only when nothing else progressed)."""
     la, lb = tlink.make_loopback_pair()
-    alice = tpipe.AliceSession(cfg, 0x5E55, la)
-    bob = tpipe.BobSession(cfg, 0x5E55, lb, mesh=mesh)
+    alice = tpipe.AliceSession(cfg, 0x5E55, la, device="cpu")
+    bob = tpipe.BobSession(cfg, 0x5E55, lb, mesh=mesh, device="cpu")
     alice.push_sifted(a_bits)
     bob.push_sifted(b_bits)
     for _ in range(100_000):

@@ -108,7 +108,8 @@ def test_unported_options_raise():
 def test_program_cache_is_bounded(monkeypatch):
     monkeypatch.setattr(tpipe, "_PROGRAM_CACHE_MAX", 2)
     tpipe._PROGRAM_CACHE.clear()
-    bob = tpipe.BobSession(_cfg(tpipe), 1, make_direct_pair()[1])
+    bob = tpipe.BobSession(_cfg(tpipe), 1, make_direct_pair()[1],
+                           device="cpu")
     for r in range(len(bob.ladder.steps)):
         bob.programs(r)
     assert list(k[1] for k in tpipe._PROGRAM_CACHE) == [
@@ -117,9 +118,10 @@ def test_program_cache_is_bounded(monkeypatch):
 
 def test_checkpoint_round_trip():
     a_bits, b_bits = _sifted(8, 20_000, 0.03)
-    ta, tb = tpipe.run_loopback(_cfg(tpipe), a_bits, b_bits)
+    ta, tb = tpipe.run_loopback(_cfg(tpipe), a_bits, b_bits, device="cpu")
     state = tb.checkpoint_state()
-    fresh = tpipe.BobSession(_cfg(tpipe), 0x5E55, make_direct_pair()[1])
+    fresh = tpipe.BobSession(_cfg(tpipe), 0x5E55, make_direct_pair()[1],
+                             device="cpu")
     fresh.restore_state(state)
     assert fresh.window_id == tb.window_id
     np.testing.assert_array_equal(fresh.stream.snapshot_host(),
