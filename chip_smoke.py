@@ -12,14 +12,23 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    converged equal, at a production native3 rung (n = 65536, B = 128 and
    B = 8), at every native3 rung of n = 65536 at B = 8 (the cluster size
    follows the rung's mb) and at a regular n = 4096 code at B = 256, with
-   both times, the bound and the share of bound; the launch plan (cluster
-   size, shared memory per CTA, cudaOccupancyMaxActiveClusters), the
-   memory one B = 128 decode adds (<= 17 MB: outputs only), and the kernel
-   at every cluster size that fits (phase 3's rung at B = 128 and on the
-   batch's 8 slowest blocks, the mb = 4 rung at B = 128, regular n = 4096);
+   the times of a decoder call, of one launch replayed from a CUDA graph
+   (device time, no host cost) and of the plain decoder, the bound and the
+   share of bound; the launch plan (cluster size, shared memory per CTA,
+   cudaOccupancyMaxActiveClusters), the memory one B = 128 decode adds
+   (<= 17 MB: outputs only), and the kernel at every cluster size that
+   fits (phase 3's rung at B = 128 and on the batch's 8 slowest blocks,
+   the mb = 4 rung at B = 128, regular n = 4096);
 4. flooding kernel vs its plain decoder, the same checks: a regular
-   n = 4096 code at B = 1024 over QBER 1-5% (max_iters 60), and rung 1
-   (r0.600, punctured) of the n = 4096 mixed min-sum ladder at B = 64 and 8;
+   n = 4096 code at B = 1024 over QBER 1-5% (max_iters 60; one CTA per
+   block, with the memory one decode adds, <= outputs + 1 MB), rung 1
+   (r0.600, punctured) of the n = 4096 mixed min-sum ladder at B = 64 and
+   8, and phase 3's native3 rung (n = 65536, a cluster per block) at
+   B = 128 and 8; the launch plan at every shape, the kernel at every
+   cluster size that fits and 256, 512 and 1024 threads per CTA (regular
+   B = 1024, mixed B = 64, native3 B = 128 and 8), and the device time of
+   one round from blocks that never converge (regular n = 4096 at B = 1
+   and 1024, the native3 rung at B = 1);
 5. the PA FFT's integer margin at the production shape (< 0.25);
 6. session: production_config(), Alice and Bob on this card over a direct
    link, fed a BSC(3%) stream generated on the card, for 20 windows —
@@ -86,6 +95,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 QBER = 0.03
@@ -170,19 +180,21 @@ def decode_bound(code, B, iters_sum):
 
 
 def ptxas_summary(log: str) -> list:
-    """Per kernel entry of an ``-Xptxas -v`` log: registers and spills (the
-    layered kernel's instantiations named by row width and layout)."""
+    """Per kernel entry of an ``-Xptxas -v`` log: registers and spills,
+    each instantiation named by row width and layout (the layered kernel's
+    also by its thread family)."""
     import re
     out, name, spills = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
-            t = re.search(r"ILi(\d+)ELb([01])ELi(\d+)ELi(\d+)E",
+            t = re.search(r"ILi(\d+)ELb([01])E(?:Li(\d+)ELi(\d+)E)?",
                           m.group(1))
-            name = (f"<dmax {t.group(1)}, "
-                    f"{'cluster' if t.group(2) == '1' else 'one CTA'}, "
-                    f"{t.group(3)} threads x {t.group(4)} per SM>"
-                    if t else m.group(1))
+            layout = "cluster" if t and t.group(2) == "1" else "one CTA"
+            name = (m.group(1) if not t else
+                    f"<dmax {t.group(1)}, {layout}>" if t.group(3) is None
+                    else f"<dmax {t.group(1)}, {layout}, {t.group(3)} "
+                         f"threads x {t.group(4)} per SM>")
         elif "spill" in ln:
             spills = ln.strip()
         elif "Used" in ln and name:
@@ -191,40 +203,126 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def cluster_sweep(label, code, llr, syn, max_iters, reps):
-    """The layered kernel at every cluster size that fits (the decoder
-    picks one): {C: (ms, resident clusters)}, each size's result checked
-    against the decoder's."""
+def plan_text(plan) -> str:
+    return (f"C={plan.cluster}, {plan.smem} B/CTA, {plan.threads} threads, "
+            f"{plan.max_clusters} resident")
+
+
+def cluster_sweep(label, code, llr, syn, max_iters, reps, alg="layered",
+                  threads=()):
+    """The kernel at every cluster size that fits (the decoder picks one),
+    and at each of ``threads`` per CTA (default: the plan's): {(C, threads):
+    (device ms, resident blocks)}, each shape's result checked against the
+    decoder's."""
     import torch
     from qtpu_torch.ldpc import cuda_bp
     B = llr.shape[0]
     dev = llr.device
-    ref = cuda_bp.make_cuda_decoder(code, max_iters)(llr, syn)
-    tab = torch.from_numpy(cuda_bp.code_tables(code)).to(dev)
+    name = cuda_bp.KERNELS[alg]
+    plan_for, tables = ((cuda_bp.layered_plan, cuda_bp.code_tables)
+                        if alg == "layered" else
+                        (cuda_bp.flooding_plan, cuda_bp.flooding_tables))
+    ref = cuda_bp.make_cuda_decoder(code, max_iters, alg=alg)(llr, syn)
+    tab = torch.from_numpy(tables(code)).to(dev)
+    shape = (code.mb, code.nb, code.z, code.num_edges, cuda_bp._max_dc(code))
     out = {}
     for C in cuda_bp.CLUSTER_SIZES:
         try:
-            p = cuda_bp.layered_plan(code, dev, B, cluster=C)
+            plan = plan_for(code, dev, B, cluster=C)
         except ValueError:
             continue
+        for t in threads or (plan.threads,):
+            sh = cuda_bp._cluster_shape(name, *shape, C, t, dev.index)
+            if sh is None or sh[2] <= 0:
+                continue
+            p = cuda_bp.KernelPlan(C, *sh)
 
-        def run():
-            return cuda_bp._layered(code, tab, llr, syn, max_iters, 0.8125, p)
-        got = run()
-        assert torch.equal(got.bits, ref.bits) and torch.equal(
-            got.iterations, ref.iterations), f"{label}: cluster {C} disagrees"
-        out[C] = (time_cuda(run, reps), p.max_clusters)
-    chosen = cuda_bp.layered_plan(code, dev, B).cluster
-    say(f"cluster sweep {label} B={B}: " + ", ".join(
-        f"C={C} {ms:.3f} ms ({act} resident)" + (" <- chosen" if C == chosen
-                                                 else "")
-        for C, (ms, act) in out.items()))
+            def run():
+                return cuda_bp._launch(name, code, tab, llr, syn, max_iters,
+                                       0.8125, p)
+            got = run()
+            assert torch.equal(got.bits, ref.bits) and torch.equal(
+                got.iterations, ref.iterations) and torch.equal(
+                got.converged, ref.converged), f"{label}: {C}x{t} disagrees"
+            out[C, t] = (graph_ms(run, reps), p.max_clusters)
+    chosen = plan_for(code, dev, B)
+    say(f"cluster sweep {label} B={B} (device ms): " + ", ".join(
+        f"C={C} x {t} threads {ms:.3f} ms ({act} resident)"
+        + (" <- chosen" if (C, t) == (chosen.cluster, chosen.threads)
+           else "") for (C, t), (ms, act) in out.items()))
     return out
 
 
+def round_cost(label, code, llr, syn, alg="minsum"):
+    """Device time of one decoding round (sweep), from blocks that never
+    converge: the slope of a launch's device time between max_iters 10 and
+    40.  Returns us per round of the launch."""
+    from qtpu_torch.ldpc import cuda_bp
+    t = {}
+    for it in (10, 40):
+        dec = cuda_bp.make_cuda_decoder(code, it, alg=alg)
+        assert not bool(dec(llr, syn).converged.any()), label
+        t[it] = graph_ms(lambda: dec(llr, syn), 3)
+    us = 1e3 * (t[40] - t[10]) / 30
+    B = llr.shape[0]
+    say(f"round cost {label} B={B}: {us:.2f} us per round "
+        f"({1e3 * us / B:.1f} ns per block-round); launch at max_iters 10 "
+        f"{t[10]:.4f} ms, 40 {t[40]:.4f} ms")
+    return us
+
+
+def decode_added(kern, llr, syn) -> int:
+    """Bytes of device memory one decode adds (max_memory_allocated)."""
+    import torch
+    dev = llr.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    res = kern(llr, syn)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated(dev) - before
+    del res
+    return added
+
+
+def graph_ms(fn, reps):
+    """Device time of one ``fn()``: ``reps`` calls captured in a CUDA graph
+    and replayed once between CUDA events, so no host launch cost is in
+    it (the plain ``time_cuda`` of a small batch times the host)."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+class Timing(NamedTuple):
+    err: int            # max |kernel - plain| over bits, iterations, flags
+    ms: float           # one decoder call, CUDA events over back-to-back calls
+    device_ms: float    # one launch replayed from a CUDA graph
+    plain_ms: float     # the plain decoder, host clock
+    bound_ms: float
+    bound_by: str
+
+
 def kernel_vs_plain(label, code, llr, syn, max_iters, reps, alg="layered"):
-    """Kernel against the plain decoder on the same card inputs; returns
-    (max_abs_err, kernel ms, plain ms, bound ms, what bounds it)."""
+    """Kernel against the plain decoder on the same card inputs, with both
+    times, the device time and the bound."""
     import torch
     from qtpu_torch.ldpc.cuda_bp import make_cuda_decoder
     from qtpu_torch.ldpc.decode import (make_flooding_decoder,
@@ -244,15 +342,17 @@ def kernel_vs_plain(label, code, llr, syn, max_iters, reps, alg="layered"):
               int((got.converged.int() - ref.converged.int()).abs().max()))
     assert err == 0, f"{label}: kernel disagrees with the plain decoder"
     ms = time_cuda(lambda: kern(llr, syn), reps)
+    dev_ms = graph_ms(lambda: kern(llr, syn), reps)
     iters = float(ref.iterations.float().mean())
     B = llr.shape[0]
     bound_ms, bound_by = decode_bound(code, B, int(ref.iterations.sum()))
     say(f"kernel {label}: B={B} n={code.n} max_abs_err={err} "
-        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} iters_mean={iters:.2f} "
-        f"iters_max={int(ref.iterations.max())} "
+        f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.1f} "
+        f"iters_mean={iters:.2f} iters_max={int(ref.iterations.max())} "
         f"converged={int(ref.converged.sum())}/{B} bound_ms={bound_ms:.4f} "
-        f"({bound_by}) share_of_bound={bound_ms / ms:.4f}")
-    return err, ms, plain_ms, bound_ms, bound_by
+        f"({bound_by}) share_of_bound={bound_ms / ms:.4f} (device "
+        f"{bound_ms / dev_ms:.4f})")
+    return Timing(err, ms, dev_ms, plain_ms, bound_ms, bound_by)
 
 
 def reset_launches():
@@ -582,10 +682,12 @@ def sharded_decode_phase(label, code, llr, syn, max_iters, alg, reps):
             f"{label}: block {b} differs from golden"
     ms = time_cuda(lambda: sharded(llr, syn), reps)
     ms1 = time_cuda(lambda: single(llr, syn), reps)
+    bound_ms, bound_by = decode_bound(code, B, int(iters.sum()))
     say(f"sharded {label}: {MESH_SHARDS} shards of {B // MESH_SHARDS} on "
         f"{dev} == one launch of B={B} (bits, iterations, converged), "
         f"{per_call} {name} launches per call, 8 blocks == golden; "
-        f"sharded_ms={ms:.3f} unsharded_ms={ms1:.3f}")
+        f"sharded_ms={ms:.3f} unsharded_ms={ms1:.3f} bound_ms="
+        f"{bound_ms:.4f} ({bound_by}) share_of_bound {bound_ms / ms:.4f}")
     return per_call, ms, ms1
 
 
@@ -854,26 +956,20 @@ def main() -> int:
     label = f"native3 rung {rung} ({step.name})"
     qb = np.linspace(0.02, 0.04, 128)
     llr, syn = decode_inputs(step.code, 128, qb, 1, dev, step.punct_cols)
-    err, ms, plain_ms, bound_ms, bound_by = kernel_vs_plain(
+    lay = kernel_vs_plain(
         label, step.code, llr, syn, cfg.max_iters, reps=5)
     plan = cuda_bp.layered_plan(step.code, dev, 128)
-    kern = cuda_bp.make_cuda_decoder(step.code, cfg.max_iters)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    before = torch.cuda.memory_allocated(dev)
-    res = kern(llr, syn)
-    torch.cuda.synchronize()
-    added = torch.cuda.max_memory_allocated(dev) - before
-    del res
+    added = decode_added(cuda_bp.make_cuda_decoder(step.code, cfg.max_iters),
+                         llr, syn)
     assert added <= 17e6, f"one B=128 decode adds {added} bytes"
     say(f"layered plan {label} B=128: cluster C={plan.cluster}, "
         f"{plan.smem} bytes of dynamic shared memory and {plan.threads} "
         f"threads per CTA, cudaOccupancyMaxActiveClusters="
         f"{plan.max_clusters}; one decode adds {added / 1e6:.3f} MB "
-        f"(max_memory_allocated); bound {bound_ms:.4f} ms ({bound_by}), "
-        f"share of bound {bound_ms / ms:.4f}")
+        f"(max_memory_allocated); bound {lay.bound_ms:.4f} ms "
+        f"({lay.bound_by}), share of bound {lay.bound_ms / lay.ms:.4f}")
     l8, s8 = llr[:8].contiguous(), syn[:8].contiguous()
-    _, ms8, _, _, _ = kernel_vs_plain(label, step.code, l8, s8,
+    lay8 = kernel_vs_plain(label, step.code, l8, s8,
                                       cfg.max_iters, reps=5)
     slow8 = (llr[-8:].contiguous(), syn[-8:].contiguous())
     cluster_sweep(label, step.code, llr, syn, cfg.max_iters, reps=3)
@@ -903,19 +999,54 @@ def main() -> int:
     # 4. flooding kernel vs plain decoder
     llr_f, syn_f = decode_inputs(reg, 1024, np.linspace(0.01, 0.05, 1024), 3,
                                  dev)
-    f_err, f_ms, f_plain_ms, f_bound_ms, f_bound_by = kernel_vs_plain(
-        "flooding regular (3,6)", reg, llr_f, syn_f, 60, reps=5,
-        alg="minsum")
+    f_plan = cuda_bp.flooding_plan(reg, dev, 1024)
+    flo = kernel_vs_plain(
+        f"flooding regular (3,6) {plan_text(f_plan)}", reg, llr_f, syn_f, 60,
+        reps=5, alg="minsum")
+    f_added = decode_added(cuda_bp.make_cuda_decoder(reg, 60, alg="minsum"),
+                           llr_f, syn_f)
+    f_outputs = 1024 * (reg.n + 1 + 4)
+    assert f_added <= f_outputs + (1 << 20), \
+        f"one B=1024 flooding decode adds {f_added} bytes"
+    say(f"flooding plan regular (3,6) B=1024: {plan_text(f_plan)}; one "
+        f"decode adds {f_added / 1e6:.3f} MB (outputs {f_outputs / 1e6:.3f} "
+        f"MB); bound {flo.bound_ms:.4f} ms ({flo.bound_by}), share of bound "
+        f"{flo.bound_ms / flo.ms:.4f}")
     mixed = make_rate_ladder(4096, family="mixed", alg="minsum").steps[1]
     assert mixed.name == "r0.600" and mixed.punct_cols
     llr_m, syn_m = decode_inputs(mixed.code, 64, np.linspace(0.01, 0.05, 64),
                                  4, dev, mixed.punct_cols)
+    f_rows = {}
     for b in (64, 8):
-        e, _, _, _, _ = kernel_vs_plain(
-            f"flooding mixed rung 1 ({mixed.name}, punct {mixed.punct_cols})",
-            mixed.code, llr_m[:b].contiguous(), syn_m[:b].contiguous(), 60,
-            reps=5, alg="minsum")
-        f_err = max(f_err, e)
+        p = cuda_bp.flooding_plan(mixed.code, dev, b)
+        f_rows[f"mixed_b{b}"] = kernel_vs_plain(
+            f"flooding mixed rung 1 ({mixed.name}, punct {mixed.punct_cols}) "
+            f"{plan_text(p)}", mixed.code, llr_m[:b].contiguous(),
+            syn_m[:b].contiguous(), 60, reps=5, alg="minsum")
+    # phase 3's native3 rung: a block's state spans a cluster
+    for b in (128, 8):
+        p = cuda_bp.flooding_plan(step.code, dev, b)
+        f_rows[f"native3_b{b}"] = kernel_vs_plain(
+            f"flooding {label} {plan_text(p)}", step.code,
+            llr[:b].contiguous(), syn[:b].contiguous(), cfg.max_iters,
+            reps=3, alg="minsum")
+    f_err = max([flo.err] + [r.err for r in f_rows.values()])
+    widths = (256, 512, 1024)
+    cluster_sweep("flooding regular (3,6)", reg, llr_f, syn_f, 60, reps=5,
+                  alg="minsum", threads=widths)
+    cluster_sweep(f"flooding mixed rung 1 ({mixed.name})", mixed.code,
+                  llr_m, syn_m, 60, reps=5, alg="minsum", threads=widths)
+    for b in (128, 8):
+        cluster_sweep(f"flooding {label}", step.code, llr[:b].contiguous(),
+                      syn[:b].contiguous(), cfg.max_iters, reps=3,
+                      alg="minsum", threads=widths)
+    # the cost of a round: one block alone, and a full card of them
+    l12, s12 = decode_inputs(reg, 1024, np.full(1024, 0.12), 5, dev)
+    for b in (1, 1024):
+        round_cost("flooding regular (3,6) at QBER 12%", reg,
+                   l12[:b].contiguous(), s12[:b].contiguous())
+    l6, s6 = decode_inputs(step.code, 1, [0.06], 5, dev, step.punct_cols)
+    round_cost(f"flooding {label} at QBER 6%", step.code, l6, s6)
 
     # 5. PA FFT integer margin at the production shape
     from qtpu_torch.link import make_direct_pair
@@ -1130,9 +1261,11 @@ def main() -> int:
         "launches_per_window": round(per_window, 4),
         "launch_batches": {str(b): c for b, c in sorted(prod_batches.items())},
         "sharded_ms": round(sh_ms, 4), "unsharded_ms": round(sh_ms1, 4),
-        "max_abs_err": float(err), "ms": round(ms, 4), "ms_b8": round(ms8, 4),
-        "plain_ms": round(plain_ms, 2), "bound_ms": round(bound_ms, 4),
-        "bound_by": bound_by, "library_ms": None, "cluster": plan.cluster,
+        "max_abs_err": float(lay.err), "ms": round(lay.ms, 4),
+        "device_ms": round(lay.device_ms, 4), "ms_b8": round(lay8.ms, 4),
+        "device_ms_b8": round(lay8.device_ms, 4),
+        "plain_ms": round(lay.plain_ms, 2), "bound_ms": round(lay.bound_ms, 4),
+        "bound_by": lay.bound_by, "library_ms": None, "cluster": plan.cluster,
         "smem_per_cta": plan.smem, "max_active_clusters": plan.max_clusters,
         "decode_added_mb": round(added / 1e6, 3)}, {
         "name": "bp_flooding", "route": "cuda",
@@ -1146,9 +1279,15 @@ def main() -> int:
         "launches_per_window": round(f_per_window, 4),
         "sharded_ms": round(shf_ms, 4), "unsharded_ms": round(shf_ms1, 4),
         "max_abs_err": float(f_err),
-        "ms": round(f_ms, 4), "plain_ms": round(f_plain_ms, 2),
-        "bound_ms": round(f_bound_ms, 4), "bound_by": f_bound_by,
-        "library_ms": None, "cluster": 1}]}))
+        "ms": round(flo.ms, 4), "device_ms": round(flo.device_ms, 4),
+        "plain_ms": round(flo.plain_ms, 2),
+        "bound_ms": round(flo.bound_ms, 4), "bound_by": flo.bound_by,
+        "library_ms": None, "cluster": f_plan.cluster,
+        "smem_per_cta": f_plan.smem, "threads": f_plan.threads,
+        "max_active_clusters": f_plan.max_clusters,
+        "decode_added_mb": round(f_added / 1e6, 3),
+        **{f"{f}_{k}": round(getattr(r, f), 4) for k, r in f_rows.items()
+           for f in ("ms", "device_ms", "bound_ms")}}]}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

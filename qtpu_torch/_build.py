@@ -2,8 +2,8 @@
 
 Each ``qtpu_torch/csrc/<name>.cu`` has a plain C entry point; it compiles to
 ``build/qtpu_torch/lib<name>-<hash>.so`` at the repository root (the hash
-covers the source and the flags, so an edited source rebuilds) and loads
-with ``ctypes``.  Nothing here runs at import time: the CPU path never needs
+covers the source, the headers it includes and the flags, so an edited
+source or header rebuilds) and loads with ``ctypes``.  Nothing here runs at import time: the CPU path never needs
 a compiler.
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -43,11 +44,28 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(src: Path) -> list[Path]:
+    """``src`` and every header it includes with ``#include "..."`` from
+    ``csrc/``, transitively, each once."""
+    out, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path not in out:
+            out.append(path)
+            todo += [_CSRC / inc for inc in re.findall(
+                r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M)]
+    return out
+
+
 def _paths(name: str) -> tuple[Path, Path, Path]:
-    """(source, library, compiler log) of ``csrc/<name>.cu``."""
+    """(source, library, compiler log) of ``csrc/<name>.cu``; the library's
+    tag hashes the source, the headers it includes and the flags."""
     src = _CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256()
+    for path in _sources(src):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:12]
     return (src, BUILD_DIR / f"lib{name}-{tag}.so",
             BUILD_DIR / f"lib{name}-{tag}.log")
 

@@ -43,6 +43,8 @@
 //  * Device memory is touched only to read llr, the syndrome and the code
 //    table once and to write bits, converged and iterations once: no
 //    global scratch.
+//  * The DSMEM accesses, barriers, flag and launch helpers are in
+//    cluster_state.cuh, shared with bp_flooding.cu.
 //
 // What bounds it on an H100.  At n = 65536 (z = 2048, nb = 32, mb 4-16) a
 // block's state is 256 KB of totals plus 14 * mb * z bytes of check state
@@ -76,8 +78,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster_state.cuh"
+
 #define MAX_DC 32
-#define MAX_CLUSTER 16
 // Two families of instantiations.  Wide: up to 512 threads, one CTA per SM
 // (C <= 4: a CTA's share of a production block's state takes most of the
 // SM's shared memory).  Narrow: up to 256 threads with registers capped so
@@ -105,116 +108,6 @@ __host__ __device__ inline Layout layout(int mb, int nb, int zc, int E) {
   L.syn = L.amin + (size_t)mb * zc;
   L.total = L.syn + (size_t)mb * zc;
   return L;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// The shared::cluster address of local shared address `a` in CTA `rank`.
-__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-
-// Shared-memory accesses of the decoder state.  CL: the state is spread
-// over a cluster and addresses are shared::cluster ones (from mapa); else
-// one CTA holds it all and addresses are the CTA's own.  All are volatile
-// asm, so they keep their order relative to each other and the barriers.
-template <bool CL>
-__device__ __forceinline__ uint32_t at_rank(uint32_t a, uint32_t rank) {
-  if constexpr (CL) return mapa(a, rank);
-  return a;
-}
-
-template <bool CL>
-__device__ __forceinline__ float ld_state(uint32_t a) {
-  float v;
-  if constexpr (CL)
-    asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a));
-  else
-    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
-  return v;
-}
-
-template <bool CL>
-__device__ __forceinline__ uint32_t ld_flag(uint32_t a) {
-  uint32_t v;
-  if constexpr (CL)
-    asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(a));
-  else
-    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
-  return v;
-}
-
-template <bool CL>
-__device__ __forceinline__ void st_state(uint32_t a, float v) {
-  if constexpr (CL)
-    asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(a), "f"(v));
-  else
-    asm volatile("st.shared.f32 [%0], %1;" :: "r"(a), "f"(v));
-}
-
-// Every thread of the cluster (CL) or of the CTA: writes to the state
-// before it are visible to every read after it.
-template <bool CL>
-__device__ __forceinline__ void state_barrier() {
-  if constexpr (CL)
-    asm volatile("barrier.cluster.arrive.release;\n\t"
-                 "barrier.cluster.wait.acquire;" ::: "memory");
-  else
-    asm volatile("bar.sync 0;" ::: "memory");
-}
-
-// Clears rank 0's flag word `flag` (an address from at_rank<CL>(., 0))
-// when any lane of the calling warp saw a failed parity.  All 32 lanes
-// must call it.
-template <bool CL>
-__device__ __forceinline__ void flag_and(uint32_t flag, int ok) {
-  if (!__all_sync(0xffffffffu, ok) && (threadIdx.x & 31) == 0) {
-    if constexpr (CL)
-      asm volatile("red.shared::cluster.and.b32 [%0], %1;"
-                   :: "r"(flag), "r"(0u) : "memory");
-    else
-      asm volatile("red.shared.and.b32 [%0], %1;"
-                   :: "r"(flag), "r"(0u) : "memory");
-  }
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_id() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
-  return r;
-}
-
-// Where lane r's edge with shift s and column j reads its total: the
-// address of totals[j][(r + s) mod z] in the owner's CTA.
-template <bool CL>
-__device__ __forceinline__ uint32_t total_addr(uint32_t tot, int r, int s,
-                                               int j, int z, int zc,
-                                               int zc_log2) {
-  int p = r + s;
-  if (p >= z) p -= z;
-  uint32_t owner = 0;
-  if constexpr (CL) {
-    owner = (uint32_t)(p >> zc_log2);
-    p &= zc - 1;
-  }
-  return at_rank<CL>(tot + 4u * (uint32_t)(j * zc + p), owner);
 }
 
 template <int DMAX, bool CL, int NT, int MINB>
@@ -382,10 +275,6 @@ bp_layered_kernel(const float* __restrict__ llr,      // (B, nb*z)
   if constexpr (CL) state_barrier<CL>();
 }
 
-typedef void (*KernelFn)(const float*, const uint8_t*, const int*, uint8_t*,
-                         uint8_t*, int32_t*, int, int, int, int, int, float,
-                         int);
-
 static int max_threads(int cluster) {
   return cluster >= NARROW_FROM_CLUSTER ? NARROW_THREADS : WIDE_THREADS;
 }
@@ -410,39 +299,6 @@ static KernelFn kernel_for(int max_dc, int cluster) {
   return bp_layered_kernel<MAX_DC, true, NARROW_THREADS, 2>;
 }
 
-static int log2_exact(int x) {
-  int k = 0;
-  while ((1 << k) < x) ++k;
-  return (1 << k) == x ? k : -1;
-}
-
-// The kernel's attributes for a launch of `cluster` CTAs per block with
-// `smem` bytes of dynamic shared memory each.
-static cudaError_t set_attributes(KernelFn fn, int cluster, int smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && cluster > 8)
-    e = cudaFuncSetAttribute(
-        (const void*)fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return e;
-}
-
-static void launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                          int B, int cluster, int threads, int smem,
-                          void* stream) {
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3((unsigned)(B * cluster), 1, 1);
-  cfg->blockDim = dim3((unsigned)threads, 1, 1);
-  cfg->dynamicSmemBytes = (size_t)smem;
-  cfg->stream = (cudaStream_t)stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-}
-
 static bool valid_shape(int max_dc, int z, int cluster, int threads) {
   return max_dc <= MAX_DC && cluster >= 1 && cluster <= MAX_CLUSTER &&
          z % cluster == 0 && (cluster == 1 || log2_exact(z / cluster) >= 0) &&
@@ -461,11 +317,7 @@ extern "C" long long qtpu_bp_layered_smem(int mb, int nb, int z, int E,
 
 // The most dynamic shared memory a CTA may opt in to on `device`.
 extern "C" int qtpu_bp_layered_smem_optin(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  return v;
+  return smem_optin(device);
 }
 
 // cudaOccupancyMaxActiveClusters for the kernel of `max_dc` at this
@@ -474,16 +326,8 @@ extern "C" int qtpu_bp_layered_smem_optin(int device) {
 extern "C" int qtpu_bp_layered_max_clusters(int max_dc, int z, int cluster,
                                             int threads, int smem) {
   if (!valid_shape(max_dc, z, cluster, threads)) return -1;
-  KernelFn fn = kernel_for(max_dc, cluster);
-  cudaError_t e = set_attributes(fn, cluster, smem);
-  if (e != cudaSuccess) return -(int)e;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  launch_config(&cfg, &attr, 1, cluster, threads, smem, nullptr);
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, (const void*)fn, &cfg);
-  if (e != cudaSuccess) return -(int)e;
-  return n;
+  return max_active_clusters(kernel_for(max_dc, cluster), cluster, threads,
+                             smem);
 }
 
 // Plain C entry point (bound with ctypes).  Launches B clusters of
@@ -502,15 +346,7 @@ extern "C" int qtpu_bp_layered(const float* llr, const uint8_t* syn,
   if (B <= 0 || !valid_shape(max_dc, z, cluster, threads) ||
       (long long)smem < qtpu_bp_layered_smem(mb, nb, z, E, cluster))
     return -1;
-  KernelFn fn = kernel_for(max_dc, cluster);
-  cudaError_t e = set_attributes(fn, cluster, smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  launch_config(&cfg, &attr, B, cluster, threads, smem, stream);
-  const int zc_log2 = cluster == 1 ? -1 : log2_exact(z / cluster);
-  e = cudaLaunchKernelEx(&cfg, fn, llr, syn, tables, bits, converged,
-                         iterations, mb, nb, z, E, max_iters, alpha, zc_log2);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_blocks(kernel_for(max_dc, cluster), llr, syn, tables, bits,
+                       converged, iterations, B, mb, nb, z, E, max_iters,
+                       alpha, cluster, threads, smem, stream);
 }

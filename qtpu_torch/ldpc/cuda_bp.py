@@ -6,14 +6,15 @@ ctypes):
 
 - ``bp_layered`` (``qtpu_torch/csrc/bp_layered.cu``) replaces
   ``qtpu/ldpc/pallas_bp.py::kernel_layered`` (``alg="layered"``), the
-  production decoder of the reference.  A code block's whole decoder state
-  (totals and compact check-node state) lives in the shared memory of a
-  thread-block cluster of C CTAs; the wrapper picks C from the code's shape
-  (``layered_plan``) and allocates only the outputs.
+  production decoder of the reference.
 - ``bp_flooding`` (``qtpu_torch/csrc/bp_flooding.cu``) replaces
-  ``qtpu/ldpc/pallas_bp.py::kernel`` (``alg="minsum"``, flooding).  One CTA
-  per block with its state (~71 KB at n = 4096) in global scratch that
-  every round streams through L2.
+  ``qtpu/ldpc/pallas_bp.py::kernel`` (``alg="minsum"``, flooding).
+
+In both, a code block's whole decoder state (totals and compact check-node
+state) lives in the shared memory of one CTA or of a thread-block cluster
+of C CTAs; the wrapper picks C and the threads per CTA from the code's
+shape and the batch (``layered_plan``, ``flooding_plan``) and allocates
+only the outputs.
 
 On a CPU tensor the decoder runs the plain PyTorch version
 (``qtpu_torch.ldpc.decode``); on a CUDA tensor it launches the kernel or
@@ -36,15 +37,19 @@ from qtpu_torch.ldpc.decode import (BatchDecodeResult, make_flooding_decoder,
                                     make_layered_decoder)
 
 __all__ = ["make_cuda_decoder", "code_tables", "flooding_tables", "launches",
-           "launch_batches", "KERNELS", "LayeredPlan", "layered_plan"]
+           "launch_batches", "KERNELS", "KernelPlan", "layered_plan",
+           "flooding_plan"]
 
-MAX_DC = 32           # per-lane row arrays held in registers (both kernels)
+MAX_DC = 32           # edges of a base row the kernels take (both kernels)
 MAX_THREADS = 512
-# Cluster sizes the layered kernel may use: 8 is the portable limit, 16
-# needs the non-portable attribute (the C side sets it).  From 8 CTAs per
-# cluster on, its CTAs are narrow: at most 256 threads, 3 to an SM.
+# Cluster sizes the kernels may use: 8 is the portable limit, 16 needs the
+# non-portable attribute (the C side sets it).  From 8 CTAs per cluster on,
+# the layered kernel's CTAs are narrow: at most 256 threads, 3 to an SM.
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 NARROW_FROM_CLUSTER, NARROW_THREADS = 8, 256
+# Threads per CTA the flooding plan weighs (its registers are capped at 64
+# a thread, so two CTAs of 512 or one of 1024 fill an SM's registers).
+FLOODING_THREADS = (512, 1024)
 
 # The kernel of each schedule and its plain PyTorch version.
 KERNELS = {"layered": "bp_layered", "minsum": "bp_flooding"}
@@ -55,10 +60,9 @@ launches = {name: 0 for name in KERNELS.values()}
 launch_batches = {name: collections.Counter() for name in KERNELS.values()}
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "bp_layered": [_PTR] * 6 + [_INT] * 7 + [_FLOAT] + [_INT] * 3 + [_PTR],
-    "bp_flooding": [_PTR] * 8 + [_INT] * 7 + [_FLOAT, _INT, _PTR],
-}
+# Both entry points: llr, syndrome, table, bits, converged, iterations; B,
+# mb, nb, z, E, max_dc, max_iters; alpha; cluster, threads, smem; stream.
+_ARGTYPES = [_PTR] * 6 + [_INT] * 7 + [_FLOAT] + [_INT] * 3 + [_PTR]
 
 
 def code_tables(code: QCCode) -> np.ndarray:
@@ -81,30 +85,30 @@ def code_tables(code: QCCode) -> np.ndarray:
 
 
 def flooding_tables(code: QCCode) -> np.ndarray:
-    """The flooding kernel's int32 code table.  c2v is stored by row slot
-    (edges in ``row_edges`` order, row after row); the table holds
-    row_start[mb+1], each row slot's column and shift, col_start[nb+1], and
-    each column's edges in ``col_edges`` slot order as (row slot, shift).
-    Parallel edges are allowed; raises for a row wider than MAX_DC."""
+    """The flooding kernel's int32 code table: row_start[mb+1], each row
+    slot's column and shift (edges in ``row_edges`` order, row after row),
+    col_start[nb+1], then each column's edges in ``col_edges`` slot order
+    as their base row, their slot within that row and their shift.  Parallel
+    edges are allowed; raises for a row wider than MAX_DC."""
     rows = [[int(e) for e in row if e >= 0] for row in code.row_edges]
     cols = [[int(e) for e in col if e >= 0] for col in code.col_edges]
-    order = [e for slots in rows for e in slots]
-    slot_of = {e: k for k, e in enumerate(order)}
     for i, slots in enumerate(rows):
         if len(slots) > MAX_DC:
             raise ValueError(f"base row {i} has degree {len(slots)} > "
                              f"{MAX_DC}")
-    row_start = np.cumsum([0] + [len(s) for s in rows])
-    col_start = np.cumsum([0] + [len(s) for s in cols])
+    row_order = [e for slots in rows for e in slots]
+    slot_in_row = {e: k for slots in rows for k, e in enumerate(slots)}
     col_order = [e for slots in cols for e in slots]
     return np.concatenate([
-        row_start, code.edge_col[order], code.edge_shift[order], col_start,
-        [slot_of[e] for e in col_order], code.edge_shift[col_order],
+        np.cumsum([0] + [len(s) for s in rows]), code.edge_col[row_order],
+        code.edge_shift[row_order], np.cumsum([0] + [len(s) for s in cols]),
+        code.edge_row[col_order], [slot_in_row[e] for e in col_order],
+        code.edge_shift[col_order],
     ]).astype(np.int32)
 
 
-class LayeredPlan(NamedTuple):
-    """How the layered kernel runs a code on one device."""
+class KernelPlan(NamedTuple):
+    """How a BP kernel runs a code on one device."""
     cluster: int        # CTAs per code block
     smem: int           # dynamic shared memory per CTA, bytes
     threads: int        # threads per CTA
@@ -117,21 +121,21 @@ def _kernel(name: str):
     from qtpu_torch import _build
     fn = getattr(_build.load(name), f"qtpu_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[name]
+    fn.argtypes = _ARGTYPES
     return fn
 
 
 @functools.cache
-def _layered_lib():
-    """The layered kernel's library with its planning functions typed."""
+def _lib(name: str):
+    """Kernel ``name``'s library with its planning functions typed."""
     from qtpu_torch import _build
-    lib = _build.load("bp_layered")
-    lib.qtpu_bp_layered_smem.restype = ctypes.c_longlong
-    lib.qtpu_bp_layered_smem.argtypes = [_INT] * 5
-    lib.qtpu_bp_layered_smem_optin.restype = _INT
-    lib.qtpu_bp_layered_smem_optin.argtypes = [_INT]
-    lib.qtpu_bp_layered_max_clusters.restype = _INT
-    lib.qtpu_bp_layered_max_clusters.argtypes = [_INT] * 5
+    lib = _build.load(name)
+    getattr(lib, f"qtpu_{name}_smem").restype = ctypes.c_longlong
+    getattr(lib, f"qtpu_{name}_smem").argtypes = [_INT] * 5
+    getattr(lib, f"qtpu_{name}_smem_optin").restype = _INT
+    getattr(lib, f"qtpu_{name}_smem_optin").argtypes = [_INT]
+    getattr(lib, f"qtpu_{name}_max_clusters").restype = _INT
+    getattr(lib, f"qtpu_{name}_max_clusters").argtypes = [_INT] * 5
     return lib
 
 
@@ -140,50 +144,53 @@ def _max_dc(code: QCCode) -> int:
 
 
 @functools.cache
-def _cluster_shape(mb: int, nb: int, z: int, E: int, max_dc: int,
-                   cluster: int, device: int):
-    """(smem bytes, threads, max active clusters) of the layered kernel at
-    ``cluster`` CTAs per block on CUDA device ``device``, or None when the
-    cluster does not split z into power-of-two parts of >= 32 lanes or a
-    CTA's share of the state exceeds the shared memory it may opt in to."""
+def _cluster_shape(name: str, mb: int, nb: int, z: int, E: int, max_dc: int,
+                   cluster: int, threads: int, device: int):
+    """(smem bytes, threads, max active clusters) of kernel ``name`` at
+    ``cluster`` CTAs of ``threads`` threads per block on CUDA device
+    ``device``, or None when the cluster does not split z into power-of-two
+    parts of >= 32 lanes or a CTA's share of the state exceeds the shared
+    memory it may opt in to."""
     zc = z // cluster
     if cluster > 1 and (z % cluster or zc < 32 or zc & (zc - 1)):
         return None
-    lib = _layered_lib()
-    smem = int(lib.qtpu_bp_layered_smem(mb, nb, z, E, cluster))
-    if not 0 < smem <= lib.qtpu_bp_layered_smem_optin(device):
+    lib = _lib(name)
+    smem = int(getattr(lib, f"qtpu_{name}_smem")(mb, nb, z, E, cluster))
+    if not 0 < smem <= getattr(lib, f"qtpu_{name}_smem_optin")(device):
         return None
-    limit = NARROW_THREADS if cluster >= NARROW_FROM_CLUSTER else MAX_THREADS
-    threads = min(limit, -(-zc // 32) * 32)
     with torch.cuda.device(device):
-        active = lib.qtpu_bp_layered_max_clusters(max_dc, z, cluster,
-                                                  threads, smem)
+        active = getattr(lib, f"qtpu_{name}_max_clusters")(
+            max_dc, z, cluster, threads, smem)
     return smem, threads, active
 
 
-def layered_plan(code: QCCode, device, batch: int,
-                 cluster: int | None = None) -> LayeredPlan:
-    """The layered kernel's launch shape for ``batch`` blocks of ``code``
-    on CUDA ``device`` (or at the given ``cluster`` size).
-
-    One CTA per block when the whole state fits one CTA's shared memory
-    (no distributed shared memory, CTA barriers).  Otherwise the cluster
-    size, up to the portable 8, that keeps the most blocks resident
-    (min(batch, cudaOccupancyMaxActiveClusters)), the larger on a tie: the
-    kernel is bound by latency per base row, so at equal residency a block
-    spread over more SMs (and warps) sweeps faster, while at large batch
-    the residency decides (chip_smoke.py phase 3 times every size).
-    Raises ValueError when no cluster size fits the shared memory and
+def _plan(name: str, code: QCCode, device, batch: int, cluster,
+          thread_choices) -> KernelPlan:
+    """Kernel ``name``'s launch shape for ``batch`` blocks of ``code`` on
+    CUDA ``device``: at each cluster size (or the given one) the thread
+    count of ``thread_choices(C)`` that keeps the most blocks resident, the
+    larger on a tie; then one CTA per block when the state fits one CTA,
+    else the cluster size, up to the portable 8, that keeps the most blocks
+    resident (min(batch, cudaOccupancyMaxActiveClusters)), the larger on a
+    tie.  Raises ValueError when no cluster size fits the shared memory and
     RuntimeError when the card cannot schedule one such cluster."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     args = (code.mb, code.nb, code.z, code.num_edges, _max_dc(code))
+
+    def resident(sh):
+        return min(batch, max(sh[2], 0))
+
     sizes = CLUSTER_SIZES if cluster is None else (cluster,)
-    shapes = {C: sh for C in sizes
-              if (sh := _cluster_shape(*args, C, index)) is not None}
+    shapes = {}
+    for C in sizes:
+        fits = [sh for t in thread_choices(C)
+                if (sh := _cluster_shape(name, *args, C, t, index)) is not None]
+        if fits:
+            shapes[C] = max(fits, key=lambda sh: (resident(sh), sh[1]))
     if not shapes:
         raise ValueError(
-            f"the layered kernel's state of a code with nb={code.nb}, "
+            f"the {name} kernel's state of a code with nb={code.nb}, "
             f"mb={code.mb}, z={code.z}, E={code.num_edges} fits no cluster "
             f"size {sizes} in the shared memory of a CTA on {dev}")
     if cluster is None:
@@ -191,15 +198,50 @@ def layered_plan(code: QCCode, device, batch: int,
             cluster = 1
         else:
             cands = [C for C in shapes if C <= 8] or list(shapes)
-            cluster = max(cands, key=lambda C: (
-                min(batch, max(shapes[C][2], 0)), C))
+            cluster = max(cands, key=lambda C: (resident(shapes[C]), C))
     smem, threads, active = shapes[cluster]
     if active <= 0:
         raise RuntimeError(
-            f"bp_layered: no cluster of {cluster} CTAs x {smem} bytes can "
-            f"be scheduled on {dev} (cudaOccupancyMaxActiveClusters -> "
+            f"{name}: no cluster of {cluster} CTAs x {smem} bytes can be "
+            f"scheduled on {dev} (cudaOccupancyMaxActiveClusters -> "
             f"{active})")
-    return LayeredPlan(cluster, smem, threads, active)
+    return KernelPlan(cluster, smem, threads, active)
+
+
+def _warps(lanes: int) -> int:
+    return -(-lanes // 32) * 32
+
+
+def layered_plan(code: QCCode, device, batch: int,
+                 cluster: int | None = None) -> KernelPlan:
+    """The layered kernel's launch shape for ``batch`` blocks of ``code``
+    on CUDA ``device`` (or at the given ``cluster`` size): one thread per
+    lane of a CTA's share of a base row, up to 512 (256 for the narrow CTAs
+    of clusters of 8 and more).  The kernel is bound by latency per base
+    row, so at equal residency a block spread over more SMs (and warps)
+    sweeps faster, while at large batch the residency decides (chip_smoke.py
+    phase 3 times every size)."""
+    def threads(C):
+        limit = NARROW_THREADS if C >= NARROW_FROM_CLUSTER else MAX_THREADS
+        return (min(limit, _warps(code.z // C)),)
+    return _plan("bp_layered", code, device, batch, cluster, threads)
+
+
+def flooding_plan(code: QCCode, device, batch: int,
+                  cluster: int | None = None) -> KernelPlan:
+    """The flooding kernel's launch shape for ``batch`` blocks of ``code``
+    on CUDA ``device`` (or at the given ``cluster`` size): one CTA per
+    block whenever the state fits (every code up to n = 16384 at mb <= 8),
+    else a cluster; 1024 threads per CTA when the whole batch is resident
+    at once with them, else 512, which keeps twice the blocks resident (no
+    more than a CTA's share of the base columns' lanes).  A round is bound
+    by the SM's throughput, so wider CTAs finish each block sooner, while a
+    batch that runs in waves needs the residency (chip_smoke.py phase 4
+    times both and every cluster size at n = 65536)."""
+    def threads(C):
+        cap = _warps(code.nb * (code.z // C))
+        return tuple(sorted({min(t, cap) for t in FLOODING_THREADS}))
+    return _plan("bp_flooding", code, device, batch, cluster, threads)
 
 
 def _outputs(B: int, n: int, dev):
@@ -218,37 +260,17 @@ def _run(name: str, dev, *args) -> None:
         raise RuntimeError(f"{name} launch failed (code {rc})")
 
 
-def _layered(code: QCCode, table: torch.Tensor, llr: torch.Tensor,
-             syndrome: torch.Tensor, max_iters: int, alpha: float,
-             plan: LayeredPlan) -> BatchDecodeResult:
-    """One launch of the layered kernel on checked CUDA inputs at
-    ``plan``'s cluster size.  Counts nothing: ``make_cuda_decoder``'s
-    decoder does."""
+def _launch(name: str, code: QCCode, table: torch.Tensor,
+            llr: torch.Tensor, syndrome: torch.Tensor, max_iters: int,
+            alpha: float, plan: KernelPlan) -> BatchDecodeResult:
+    """One launch of kernel ``name`` on checked CUDA inputs at ``plan``'s
+    shape.  Counts nothing: ``make_cuda_decoder``'s decoder does."""
     B, dev = llr.shape[0], llr.device
     bits, converged, iterations = _outputs(B, code.n, dev)
-    _run("bp_layered", dev, llr.data_ptr(), syndrome.data_ptr(),
-         table.data_ptr(), bits.data_ptr(), converged.data_ptr(),
-         iterations.data_ptr(), B, code.mb, code.nb, code.z, code.num_edges,
-         _max_dc(code), int(max_iters), float(alpha), plan.cluster,
-         plan.threads, plan.smem)
-    return BatchDecodeResult(bits, converged, iterations)
-
-
-def _flooding(code: QCCode, table: torch.Tensor, llr: torch.Tensor,
-              syndrome: torch.Tensor, max_iters: int,
-              alpha: float) -> BatchDecodeResult:
-    """One launch of the flooding kernel on checked CUDA inputs, one
-    thread per (row, lane) pair; its state lives in global scratch."""
-    B, dev = llr.shape[0], llr.device
-    mb, nb, z, E = code.mb, code.nb, code.z, code.num_edges
-    bits, converged, iterations = _outputs(B, code.n, dev)
-    totals = torch.empty((B, nb * z), dtype=torch.float32, device=dev)
-    c2v = torch.empty((B, E * z), dtype=torch.float32, device=dev)
-    _run("bp_flooding", dev, llr.data_ptr(), syndrome.data_ptr(),
-         table.data_ptr(), totals.data_ptr(), c2v.data_ptr(),
-         bits.data_ptr(), converged.data_ptr(), iterations.data_ptr(), B, mb,
-         nb, z, E, _max_dc(code), int(max_iters), float(alpha),
-         min(MAX_THREADS, -(-(mb * z) // 32) * 32))
+    _run(name, dev, llr.data_ptr(), syndrome.data_ptr(), table.data_ptr(),
+         bits.data_ptr(), converged.data_ptr(), iterations.data_ptr(), B,
+         code.mb, code.nb, code.z, code.num_edges, _max_dc(code),
+         int(max_iters), float(alpha), plan.cluster, plan.threads, plan.smem)
     return BatchDecodeResult(bits, converged, iterations)
 
 
@@ -260,10 +282,10 @@ def make_cuda_decoder(code: QCCode, max_iters: int, alpha: float = 0.8125,
     (XLA only in the reference): its plain PyTorch decoder is its port and
     runs on every device."""
     if alg == "layered":
-        tab_np = code_tables(code)
+        tab_np, plan = code_tables(code), layered_plan
         plain = make_layered_decoder(code, max_iters, alpha)
     elif alg == "minsum":
-        tab_np = flooding_tables(code)
+        tab_np, plan = flooding_tables(code), flooding_plan
         plain = make_flooding_decoder(code, max_iters, alpha)
     elif alg == "sumprod":
         return make_flooding_decoder(code, max_iters, alpha, alg="sumprod")
@@ -294,12 +316,8 @@ def make_cuda_decoder(code: QCCode, max_iters: int, alpha: float = 0.8125,
             return BatchDecodeResult(*_outputs(0, nb * z, dev))
         if dev not in tables:
             tables[dev] = torch.from_numpy(tab_np).to(dev)
-        if alg == "layered":
-            res = _layered(code, tables[dev], llr, syndrome, max_iters,
-                           alpha, layered_plan(code, dev, B))
-        else:
-            res = _flooding(code, tables[dev], llr, syndrome, max_iters,
-                            alpha)
+        res = _launch(name, code, tables[dev], llr, syndrome, max_iters,
+                      alpha, plan(code, dev, B))
         launches[name] += 1
         launch_batches[name][B] += 1
         return res

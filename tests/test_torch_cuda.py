@@ -123,7 +123,7 @@ def test_layered_plan_and_memory(dev):
     decode allocates its outputs and nothing else."""
     step = _native3_65536().steps[6]
     plan = cuda_bp.layered_plan(step.code, dev, 128)
-    optin = cuda_bp._layered_lib().qtpu_bp_layered_smem_optin(0)
+    optin = cuda_bp._lib("bp_layered").qtpu_bp_layered_smem_optin(0)
     assert plan.cluster > 1 and plan.max_clusters > 0
     assert 0 < plan.smem <= optin
     B = 32
@@ -197,6 +197,111 @@ def test_flooding_kernel_matches_plain(dev, which):
     _same(got, ref)
     if which == "regular1024":
         assert ref.converged.any() and not ref.converged.all()
+
+
+@pytest.mark.parametrize("B", [1, 8, 33])
+@pytest.mark.parametrize("rung", range(10))
+def test_flooding_kernel_every_native3_rung(dev, rung, B):
+    """The flooding kernel on the cluster path: every rung of n = 65536
+    (a block's state spans a cluster) at one block, a retry-sized batch and
+    more blocks than one wave of clusters."""
+    step = _native3_65536().steps[rung]
+    assert cuda_bp.flooding_plan(step.code, dev, B).cluster > 1
+    llr, syn = _inputs(step.code, np.linspace(0.02, 0.04, B), 60 + rung, dev,
+                       step.punct_cols)
+    before = cuda_bp.launches["bp_flooding"]
+    got = cuda_bp.make_cuda_decoder(step.code, 60, alg="minsum")(llr, syn)
+    torch.cuda.synchronize()
+    assert cuda_bp.launches["bp_flooding"] == before + 1
+    _same(got, make_flooding_decoder(step.code, 60)(llr, syn))
+
+
+@pytest.mark.parametrize("which", ["regular4096", "native3_65536"])
+def test_flooding_kernel_block_running_every_round(dev, which):
+    """Blocks above the code's threshold run all 60 rounds and the check-only
+    round and end unconverged, bit for bit with the plain decoder, on one
+    CTA and on a cluster."""
+    if which == "regular4096":
+        code, punct, qber = make_regular_code(4096), (), 0.12
+    else:
+        step = _native3_65536().steps[-1]
+        code, punct, qber = step.code, step.punct_cols, 0.05
+    llr, syn = _inputs(code, np.full(8, qber), 7, dev, punct)
+    ref = make_flooding_decoder(code, 60)(llr, syn)
+    assert int(ref.iterations.max()) == 60 and not bool(ref.converged.all())
+    _same(cuda_bp.make_cuda_decoder(code, 60, alg="minsum")(llr, syn), ref)
+
+
+def test_flooding_kernel_regular_4096_one_cta(dev):
+    """An n = 4096 block's state (totals and records, ~49 KB) fits one
+    CTA; at a batch that runs in waves two CTAs of 512 share an SM, and a
+    batch resident at once gets CTAs of 1024."""
+    code = make_regular_code(4096)
+    plan = cuda_bp.flooding_plan(code, dev, 1024)
+    assert plan.cluster == 1 and plan.threads == 512
+    assert plan.max_clusters >= 2 * 132
+    assert cuda_bp.flooding_plan(code, dev, 64).threads == 1024
+    llr, syn = _inputs(code, np.linspace(0.005, 0.07, 256), 8, dev)
+    _same(cuda_bp.make_cuda_decoder(code, 60, alg="minsum")(llr, syn),
+          make_flooding_decoder(code, 60)(llr, syn))
+
+
+@pytest.mark.parametrize("which", ["regular4096", "native3_65536"])
+def test_flooding_plan_and_memory(dev, which):
+    """The plan fits the opt-in shared memory and can be scheduled; one
+    decode allocates its outputs and nothing else."""
+    if which == "regular4096":
+        code, punct, B = make_regular_code(4096), (), 1024
+    else:
+        step = _native3_65536().steps[6]
+        code, punct, B = step.code, step.punct_cols, 32
+    plan = cuda_bp.flooding_plan(code, dev, B)
+    optin = cuda_bp._lib("bp_flooding").qtpu_bp_flooding_smem_optin(0)
+    assert plan.max_clusters > 0 and 0 < plan.smem <= optin
+    llr, syn = _inputs(code, np.full(B, 0.03), 9, dev, punct)
+    dec = cuda_bp.make_cuda_decoder(code, 60, alg="minsum")
+    dec(llr, syn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    res = dec(llr, syn)
+    torch.cuda.synchronize()
+    outputs = B * code.n + B + 4 * B
+    assert torch.cuda.max_memory_allocated(dev) - before <= outputs + (1 << 20)
+    del res
+
+
+def test_flooding_plan_fits_every_ladder(dev):
+    """Every code the min-sum ladders build, n = 1024 to 131072, has a
+    launch plan; the largest state (n = 131072, mixed rung 0: 1.5 MB over
+    a cluster of 8) decodes bit for bit with the plain decoder."""
+    for n in (1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072):
+        for family in ("mixed", "native3", "regular", "irregular"):
+            for step in make_rate_ladder(n, family=family,
+                                         alg="minsum").steps:
+                assert cuda_bp.flooding_plan(step.code, dev, 1).max_clusters
+    step = make_rate_ladder(131072, family="mixed", alg="minsum").steps[0]
+    assert (step.code.mb, step.code.nb) == (64, 128)
+    assert cuda_bp.flooding_plan(step.code, dev, 2).cluster == 8
+    llr, syn = _inputs(step.code, [0.01, 0.03], 10, dev, step.punct_cols)
+    _same(cuda_bp.make_cuda_decoder(step.code, 20, alg="minsum")(llr, syn),
+          make_flooding_decoder(step.code, 20)(llr, syn))
+
+
+def test_flooding_kernel_raises_before_launch_on_shapes_it_cannot_take(dev):
+    """Totals of 2048 columns x z = 64 (512 KB) fit no cluster size with
+    z / C >= 32; a row of 33 edges exceeds the kernel's sign word.  Both
+    raise and nothing launches."""
+    before = dict(cuda_bp.launches)
+    wide = _one_row_code(64, 2048)
+    llr = torch.zeros((2, wide.n), dtype=torch.float32, device=dev)
+    syn = torch.zeros((2, wide.m), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="fits no cluster size"):
+        cuda_bp.make_cuda_decoder(wide, 10, alg="minsum")(llr, syn)
+    with pytest.raises(ValueError, match="degree 33"):
+        cuda_bp.make_cuda_decoder(_one_row_code(32, 40, d=33), 10,
+                                  alg="minsum")
+    assert cuda_bp.launches == before
 
 
 def test_kernel_rejects_bad_inputs(dev):

@@ -31,7 +31,8 @@ from qtpu.ldpc.encode import make_batch_encoder
 from qtpu.ldpc.pallas_bp import make_pallas_decoder
 from qtpu_torch.ldpc import cuda_bp
 from qtpu_torch.ldpc.codes import code_from_reference, make_rate_ladder
-from qtpu_torch.ldpc.decode import (_minsum_row, make_flooding_decoder,
+from qtpu_torch.ldpc.decode import (BatchDecodeResult, _minsum_row,
+                                    make_flooding_decoder,
                                     make_layered_decoder)
 from qtpu_torch.window_programs import _pick_decoder
 
@@ -300,6 +301,138 @@ def test_flooding_wrapper_runs_plain_decoder_on_cpu(flooding):
     assert cuda_bp.launches == before
 
 
+def _flooding_table_parts(code, tab):
+    """The flooding kernel's table split into its seven arrays."""
+    mb, nb, E = code.mb, code.nb, code.num_edges
+    cuts = np.cumsum([mb + 1, E, E, nb + 1, E, E])
+    return np.split(tab, cuts)
+
+
+def _walk_flooding_kernel(code, llr, syn, max_iters, alpha=0.8125):
+    """The flooding kernel's dataflow (``qtpu_torch/csrc/bp_flooding.cu``)
+    in plain PyTorch, driven by ``cuda_bp.flooding_tables``: phase A per
+    (row, lane) from the compact record (alpha*min1, alpha*min2, argmin,
+    sign bits), phase B per (column, lane) from each column edge's (row,
+    slot, shift), rebuilding c2v' from the record of row i at lane
+    (v - s) mod z, added in column slot order.  Every round it also forms,
+    from the code's own edge lists and not from the table, each rolled
+    total, each c2v' in the per-edge form (``decode._minsum_row``) and the
+    totals from those, and holds them to the compact path bit for bit
+    (int32 views).  Returns (bits, iterations, converged, final totals)."""
+    mb, nb, z = code.mb, code.nb, code.z
+    row_start, rcol, rshift, col_start, crow, cslot, cshift = \
+        _flooding_table_parts(code, cuda_bp.flooding_tables(code))
+    B = llr.shape[0]
+    L = torch.from_numpy(llr).reshape(B, nb, z)
+    S = torch.from_numpy(syn).reshape(B, mb, z).to(torch.int64)
+    a = torch.tensor(alpha, dtype=torch.float32)
+    lanes = torch.arange(z)
+    row_edges = [[int(e) for e in row if e >= 0] for row in code.row_edges]
+    col_edges = [[int(e) for e in col if e >= 0] for col in code.col_edges]
+    m1, m2 = torch.zeros(B, mb, z), torch.zeros(B, mb, z)
+    sg = torch.zeros(B, mb, z, dtype=torch.int64)
+    am = torch.zeros(B, mb, z, dtype=torch.int64)
+    tot = L.clone()
+    bits = torch.zeros(B, nb, z, dtype=torch.uint8)
+    iters = torch.zeros(B, dtype=torch.int32)
+    conv = torch.zeros(B, dtype=torch.bool)
+    done = torch.zeros(B, dtype=torch.bool)
+
+    def rebuild(rec, i, k, p):
+        """c2v of row i's slot k at lanes p from the records ``rec``."""
+        r1, r2, rsg, ram = (x[:, i, p] for x in rec)
+        mag = torch.where(ram == k, r2, r1)
+        return torch.where(((rsg >> k) & 1).bool(), -mag, mag)
+
+    def same(x, y):
+        np.testing.assert_array_equal(x.numpy().view(np.int32),
+                                      y.numpy().view(np.int32))
+
+    for it in range(max_iters + 1):
+        new = [m1.clone(), m2.clone(), sg.clone(), am.clone()]
+        per_edge = {}
+        ok = torch.ones(B, dtype=torch.bool)
+        for i in range(mb):
+            s0, d = row_start[i], row_start[i + 1] - row_start[i]
+            par = S[:, i].clone()
+            min1 = torch.full((B, z), float("inf"))
+            min2 = min1.clone()
+            amin = torch.full((B, z), 255, dtype=torch.int64)
+            vneg = torch.zeros((B, z), dtype=torch.int64)
+            msgs = []
+            for k in range(d):
+                t = tot[:, rcol[s0 + k], (lanes + rshift[s0 + k]) % z]
+                e = row_edges[i][k]
+                same(t, torch.roll(tot[:, code.edge_col[e]],
+                                   -int(code.edge_shift[e]), 1))
+                par ^= (t < 0).long()
+                m = t - rebuild((m1, m2, sg, am), i, k, lanes)
+                msgs.append(m)
+                vneg |= (m < 0).long() << k
+                mag = m.abs()
+                first = mag < min1
+                second = ~first & (mag < min2)
+                min2 = torch.where(first, min1, torch.where(second, mag, min2))
+                min1 = torch.where(first, mag, min1)
+                amin = torch.where(first, k, amin)
+            ok &= (par == 0).all(dim=1)
+            flip = (S[:, i] ^ sum((vneg >> k) & 1 for k in range(d))) & 1
+            new[0][:, i], new[1][:, i] = a * min1, a * min2
+            new[2][:, i] = vneg ^ (flip * 0xFFFFFFFF)
+            new[3][:, i] = amin
+            want = _minsum_row(msgs, 1.0 - 2.0 * S[:, i].float(), alpha)
+            for k in range(d):
+                per_edge[row_edges[i][k]] = want[k]
+                same(rebuild(new, i, k, lanes), want[k])
+        stop = ~done & (ok | (it == max_iters))
+        iters[stop] = it
+        conv[stop] = ok[stop]
+        bits[stop] = (tot[stop] < 0).to(torch.uint8)
+        done |= stop
+        if bool(done.all()):
+            break
+        run = ~done
+        m1, m2, sg, am = (torch.where(run[:, None, None], x, y)
+                          for x, y in zip(new, (m1, m2, sg, am)))
+        nxt = tot.clone()
+        for j in range(nb):
+            acc, acc_edge = L[:, j].clone(), L[:, j].clone()
+            for e in range(col_start[j], col_start[j + 1]):
+                i, k, s = crow[e], cslot[e], cshift[e]
+                acc = acc + rebuild((m1, m2, sg, am), i, k, (lanes - s) % z)
+            for e in col_edges[j]:
+                acc_edge = acc_edge + torch.roll(
+                    per_edge[e], int(code.edge_shift[e]), 1)
+            same(acc[run], acc_edge[run])
+            nxt[:, j] = acc
+        tot = torch.where(run[:, None, None], nxt, tot)
+    return (bits.reshape(B, nb * z), iters, conv, tot.reshape(B, nb * z))
+
+
+@pytest.fixture(scope="module")
+def flooding_walk(flooding):
+    code, llr, syn, _ = flooding
+    return _walk_flooding_kernel(code_from_reference(code), llr, syn,
+                                 MAX_ITERS)
+
+
+@pytest.mark.parametrize("ref", ["plain", "pallas_interpret", "xla"])
+def test_flooding_kernel_walk(flooding, flooding_walk, ref):
+    """The kernel's table and compact-state round, walked on the CPU, equal
+    the plain decoder, the Pallas kernel in interpret mode and the XLA
+    decoder (bits, iterations, converged), exactly."""
+    code, llr, syn, res = flooding
+    if ref == "pallas_interpret":
+        res = make_pallas_decoder(code, max_iters=MAX_ITERS, batch_tile=8,
+                                  interpret=True, alg="minsum")(
+            jnp.asarray(llr), jnp.asarray(syn))
+    elif ref == "xla":
+        res = make_batch_decoder(code, max_iters=MAX_ITERS, alg="minsum")(
+            jnp.asarray(llr), jnp.asarray(syn))
+    bits, iters, conv, _ = flooding_walk
+    _assert_same(res, BatchDecodeResult(bits, conv, iters))
+
+
 def _sumprod(code, llr, syn):
     """The port's sum-product through the sessions' decoder choice."""
     before = dict(cuda_bp.launches)
@@ -362,29 +495,42 @@ def _parallel_edge_code(pkg):
 
 
 def test_flooding_takes_parallel_edges():
+    """The flooding table of a code with parallel edges: each row slot's
+    column and shift in row order, each column edge's (row, slot within the
+    row, shift) in column slot order; the kernel's walk over it equals the
+    golden model, the plain decoder, the XLA decoder and the Pallas kernel
+    in interpret mode."""
     import qtpu.ldpc.codes as jcodes
     import qtpu_torch.ldpc.codes as tcodes
     ref, code = _parallel_edge_code(jcodes), _parallel_edge_code(tcodes)
     with pytest.raises(ValueError, match="parallel"):
         cuda_bp.code_tables(code)
     tab = cuda_bp.flooding_tables(code)
-    mb, nb, E = code.mb, code.nb, code.num_edges
-    row_start, rcol = tab[:mb + 1], tab[mb + 1:mb + 1 + E]
-    col_start = tab[mb + 1 + 2 * E:mb + nb + 2 + 2 * E]
-    cpos, cshift = tab[mb + nb + 2 + 2 * E:-E], tab[-E:]
-    order = [e for row in code.row_edges for e in row if e >= 0]
+    assert len(tab) == code.mb + code.nb + 2 + 5 * code.num_edges
+    row_start, rcol, rshift, col_start, crow, cslot, cshift = \
+        _flooding_table_parts(code, tab)
+    assert list(row_start) == [0, 4, 9] and list(col_start) == [0, 3, 5, 7, 9]
+    rows = [[e for e in row if e >= 0] for row in code.row_edges]
+    order = [e for row in rows for e in row]
     np.testing.assert_array_equal(rcol, code.edge_col[order])
+    np.testing.assert_array_equal(rshift, code.edge_shift[order])
     for j, col in enumerate(code.col_edges):
         slots = [e for e in col if e >= 0]
-        got = cpos[col_start[j]:col_start[j + 1]]
-        np.testing.assert_array_equal([order[k] for k in got], slots)
+        got = range(col_start[j], col_start[j + 1])
+        assert [rows[crow[g]][cslot[g]] for g in got] == slots
         np.testing.assert_array_equal(cshift[col_start[j]:col_start[j + 1]],
                                       code.edge_shift[slots])
-    assert list(row_start) == [0, 4, 9]
     llr, syn = _scenario(ref, np.repeat([0.01, 0.05, 0.1, 0.2], 2), 13, 8)
     res = cuda_bp.make_cuda_decoder(code, MAX_ITERS, alg="minsum")(
         torch.from_numpy(llr), torch.from_numpy(syn))
     _assert_same_as_golden(ref, llr, syn, res, alg="minsum")
+    walk = _walk_flooding_kernel(code, llr, syn, MAX_ITERS)
+    walk = BatchDecodeResult(walk[0], walk[2], walk[1])
+    _assert_same(res, walk)
+    for dec in (make_batch_decoder(ref, max_iters=MAX_ITERS, alg="minsum"),
+                make_pallas_decoder(ref, max_iters=MAX_ITERS, batch_tile=8,
+                                    interpret=True, alg="minsum")):
+        _assert_same(dec(jnp.asarray(llr), jnp.asarray(syn)), walk)
 
 
 @pytest.mark.parametrize("n,family,alg", [
