@@ -11,8 +11,10 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
 3. layered kernel vs its plain PyTorch decoder, bits / iterations /
    converged equal, at a production native3 rung (n = 65536, B = 128 and
    B = 8), at every native3 rung of n = 65536 at B = 8 (the cluster size
-   follows the rung's mb) and at a regular n = 4096 code at B = 256, with
-   the times of a decoder call, of one launch replayed from a CUDA graph
+   follows the rung's mb), at every native3 rung at B = 32 (the bench's
+   events -> key chain), at a regular n = 4096 code at B = 256, and on the
+   bench's own decode-alone inputs (``qtpu_torch.bench.decode_inputs``:
+   regular n = 4096, B = 1024, 30 iterations), with the times of a decoder call, of one launch replayed from a CUDA graph
    (device time, no host cost) and of the plain decoder, the bound and the
    share of bound; the launch plan (cluster size, shared memory per CTA,
    cudaOccupancyMaxActiveClusters), the memory one B = 128 decode adds
@@ -82,7 +84,18 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     card, joined by ``init_distributed(backend="gloo")``, each owning 2 of
     4 shards of Bob's program at phase 3's rung (B = 128): both psum'd
     ledgers equal each other and the one-process 4-shard program's on the
-    same window.
+    same window;
+17. the bench: ``python -m qtpu_torch.cli bench`` as a subprocess on this
+    card (the decoder alone, the copy bandwidth, both parties on the card,
+    Bob's replayed session three times each, the events -> key chain, the
+    sift matcher; the reference's threefry BSC stream): its last line names
+    the per-chip median metric with a value > 0, >= 2 of the per-chip runs
+    are clean, the two-party FER <= 0.05, every decode-alone block
+    converged, the measured copy bandwidth is below 1.05 x 3,350 GB/s, and
+    its ``bench launches`` line shows the layered kernel launched by every
+    measurement; the bound of its decode-alone call, from the iterations
+    the bench's own call reported, equals phase 3's on the same inputs and
+    is printed with the share of bound.  The line is printed.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -907,6 +920,45 @@ def two_process_phase(dev, timeout):
     return launches
 
 
+def bench_phase(timeout, code, decode):
+    """Phase 17: ``python -m qtpu_torch.cli bench`` as a user runs it, on
+    this card; ``code`` and ``decode`` (a Timing) are phase 3's run of the
+    layered kernel on the bench's decode-alone inputs.  Returns (its JSON
+    line, its launches per measurement, its wall time in seconds, the
+    decode-alone bound in ms)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "qtpu_torch.cli", "bench"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t
+    assert proc.returncode == 0, \
+        f"bench exited {proc.returncode}: {proc.stderr[-3000:]}"
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    launches = json.loads(lines[-2].split("bench launches: ", 1)[1])
+    x = out["extra"]
+    assert out["metric"] == \
+        "full_chain_reconciled_bits_per_s_per_chip_qber3_median", out
+    assert out["value"] > 0, out
+    assert 3 - x["per_chip_traced_runs"] >= 2, x
+    assert x["full_chain_fer"] <= 0.05, x
+    assert x["decode_blocks_converged"] == x["decode_blocks"] == 1024, x
+    assert x["hbm_copy_gbyte_s_measured"] < 1.05 * HBM_BYTES_PER_S / 1e9, x
+    for name, counts in launches.items():
+        assert counts["bp_layered"] > 0, f"bench {name}: no bp_layered"
+    bound_ms, bound_by = decode_bound(code, x["decode_blocks"],
+                                      x["decode_iterations_sum"])
+    assert (bound_ms, bound_by) == (decode.bound_ms, decode.bound_by), \
+        f"bench decode alone: bound {bound_ms} != phase 3's {decode.bound_ms}"
+    say(f"bench decode alone: {x['decode_step_ms']} ms a call, "
+        f"{x['decode_iterations_sum'] / x['decode_blocks']:.2f} iterations "
+        f"a block, bound {bound_ms:.4f} ms ({bound_by}), share of bound "
+        f"{bound_ms / x['decode_step_ms']:.4f}; host {x['host']}")
+    return out, launches, wall, bound_ms
+
+
 def main() -> int:
     try:
         import torch
@@ -990,6 +1042,21 @@ def main() -> int:
     kernel_vs_plain(f"regular (3,6) C={c_reg}", reg, llr4, syn4,
                     cfg.max_iters, reps=5)
     cluster_sweep("regular (3,6)", reg, llr4, syn4, cfg.max_iters, reps=5)
+    # the bench's shapes: its decode alone, and every rung at its events ->
+    # key chain's B = 32
+    from qtpu_torch import bench
+    b_code, b_llr, b_syn = bench.decode_inputs(dev, 1024)
+    b_dec = kernel_vs_plain(
+        f"bench decode alone, regular (3,6) C="
+        f"{cuda_bp.layered_plan(b_code, dev, 1024).cluster}", b_code, b_llr,
+        b_syn, bench.DECODE_ITERS, reps=5)
+    del b_llr, b_syn
+    for r, st in enumerate(ladder.steps):
+        lr, sr = decode_inputs(st.code, 32, np.linspace(0.02, 0.04, 32),
+                               50 + r, dev, st.punct_cols)
+        p = cuda_bp.layered_plan(st.code, dev, 32)
+        kernel_vs_plain(f"native3 rung {r} ({st.name}, C={p.cluster})",
+                        st.code, lr, sr, cfg.max_iters, reps=3)
     low = ladder.steps[-1]          # mb = 4: the smallest cluster that fits
     cluster_sweep(f"native3 rung {len(ladder.steps) - 1} ({low.name})",
                   low.code, *decode_inputs(low.code, 128, qb, 5, dev,
@@ -1248,6 +1315,12 @@ def main() -> int:
     # 16. two processes, each owning half of the mesh
     two_launches = two_process_phase(dev, timeout=300)
 
+    # 17. the bench, through the CLI
+    bench_out, bench_launches, bench_s, b_bound = bench_phase(
+        700, b_code, b_dec)
+    say(f"bench ({bench_s:.1f} s; launches {bench_launches}): "
+        f"{json.dumps(bench_out)}")
+
     say(json.dumps({"kernels": [{
         "name": "bp_layered", "route": "cuda",
         "source": "qtpu_torch/csrc/bp_layered.cu",
@@ -1258,6 +1331,8 @@ def main() -> int:
         "launches_mesh_session": mesh_launches["bp_layered"],
         "launches_mesh_stream_pa_session": mst_launches["bp_layered"],
         "launches_two_processes": two_launches,
+        "launches_bench": {k: v["bp_layered"]
+                           for k, v in bench_launches.items()},
         "launches_per_window": round(per_window, 4),
         "launch_batches": {str(b): c for b, c in sorted(prod_batches.items())},
         "sharded_ms": round(sh_ms, 4), "unsharded_ms": round(sh_ms1, 4),
@@ -1267,7 +1342,11 @@ def main() -> int:
         "plain_ms": round(lay.plain_ms, 2), "bound_ms": round(lay.bound_ms, 4),
         "bound_by": lay.bound_by, "library_ms": None, "cluster": plan.cluster,
         "smem_per_cta": plan.smem, "max_active_clusters": plan.max_clusters,
-        "decode_added_mb": round(added / 1e6, 3)}, {
+        "decode_added_mb": round(added / 1e6, 3),
+        "bench_decode_ms": bench_out["extra"]["decode_step_ms"],
+        "bench_decode_device_ms": round(b_dec.device_ms, 4),
+        "bench_decode_plain_ms": round(b_dec.plain_ms, 2),
+        "bench_decode_bound_ms": round(b_bound, 4)}, {
         "name": "bp_flooding", "route": "cuda",
         "source": "qtpu_torch/csrc/bp_flooding.cu",
         "replaces": "qtpu/ldpc/pallas_bp.py:262",

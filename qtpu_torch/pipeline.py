@@ -254,6 +254,9 @@ class WindowMetrics:
 # share them.  Bounded (least recently used entries go first).
 _PROGRAM_CACHE: collections.OrderedDict = collections.OrderedDict()
 _PROGRAM_CACHE_MAX = 64
+# Programs made and inserted into the cache since import (the bench counts
+# those made inside a timed region: the LRU's length cannot show one).
+programs_made = 0
 
 
 class _Party:
@@ -320,6 +323,7 @@ class _Party:
                             for i in range(len(self.ladder.steps)))
 
     def programs(self, rate_index: int) -> WindowPrograms:
+        global programs_made
         if rate_index not in self._programs:
             ck = (self.config, rate_index, str(self.device), self._mesh)
             cached = _PROGRAM_CACHE.get(ck)
@@ -356,6 +360,7 @@ class _Party:
                 mesh=self._mesh)
             self._programs[rate_index] = progs
             _PROGRAM_CACHE[ck] = progs
+            programs_made += 1
             while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_MAX:
                 _PROGRAM_CACHE.popitem(last=False)
         return self._programs[rate_index]

@@ -10,9 +10,11 @@ Tolerance: exact — each kernel against its plain PyTorch decoder (bits,
 iterations, converged; the layered kernel at every native3 rung of
 n = 65536, hence at every cluster size the production ladder uses), a
 session on the card against the same session on
-the CPU (final keys, ledgers, per-window metrics), and the sift functions
-on the card against the CPU on the same events (residuals to 1e-5
-relative: their float32 division may round differently on the card).
+the CPU (final keys, ledgers, per-window metrics), the bench's BSC stream
+on the card against the CPU and its per-chip replay on the card, and the
+sift functions on the card against the CPU on the same events (residuals
+to 1e-5 relative: their float32 division may round differently on the
+card).
 """
 
 import functools
@@ -350,6 +352,29 @@ def test_session_on_card_matches_cpu(dev, alg):
     assert ga.ledger.as_dict() == gb.ledger.as_dict() == ca.ledger.as_dict()
     assert [m.as_dict() for m in gb.metrics] == [m.as_dict()
                                                 for m in cb.metrics]
+
+
+def test_bench_stream_on_card_equals_cpu(dev):
+    """The bench's threefry BSC stream (equal to the reference's on the CPU,
+    tests/test_torch_bench.py) is the same bits on the card."""
+    from qtpu_torch.bench import device_bsc_stream
+    got = device_bsc_stream(5000, 0.03, 7, chunk_bits=2048, device=dev)
+    want = device_bsc_stream(5000, 0.03, 7, chunk_bits=2048, device="cpu")
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def test_bench_replay_on_card(dev):
+    """On the card a decode lands while the host runs on, so Bob's rate
+    choices at max_inflight_windows=3 vary with timing: the replay still
+    sends the recorded messages, and a second run is clean."""
+    from qtpu_torch.bench import measure_party
+    cfg = PipelineConfig(n=1024, blocks_per_window=4, qber_test_bits=512,
+                         max_inflight_windows=3)
+    runs = [measure_party("bob", windows=4, warmup_windows=2, config=cfg,
+                          device=dev, chunk_bits=1 << 14) for _ in range(2)]
+    assert all(r["windows"] >= 4 for r in runs)
+    assert runs[1]["trace_growth"] == 0
 
 
 @pytest.fixture(scope="module")
