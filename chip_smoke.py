@@ -95,7 +95,26 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     its ``bench launches`` line shows the layered kernel launched by every
     measurement; the bound of its decode-alone call, from the iterations
     the bench's own call reported, equals phase 3's on the same inputs and
-    is printed with the share of bound.  The line is printed.
+    is printed with the share of bound.  The line is printed;
+18. the measuring scripts as subprocesses on this card, each JSON line
+    printed: ``python -m qtpu_torch.baseline`` config1 (converged, the key
+    exact), config2 (five QBER rows at B = 1024, the layered kernel
+    launched on every call, its bits, iterations and converged flags at
+    QBER 5% on config 2's own inputs == the plain decoder's here, each
+    row's bound and share of bound), config3 (every rung of the n = 4096
+    mixed ladder, one flooding launch each; the flooding kernel == the
+    plain decoder on every rung's own B = 256 inputs; rungs 0, 1 and the
+    last == ``measure_fer`` on the CPU), config5 (two gloo processes: ok,
+    equal ledgers, == the one-process 8-shard program's on the card and on
+    the CPU, 8 flooding launches) and efficiency (five rows, identical
+    keys, ledger final bits == key bits; the layered kernel == the plain
+    decoder on every rung of the sessions' ladder at B = 64 and at the
+    retry's 8 rows with n/10 bits pinned); ``python -m
+    qtpu_torch.profiling programs 10`` (every program
+    launches kernels, device ms <= 1.05 x call ms, decode_only launches
+    the layered kernel once a call) and ``chain 6`` (>= 6 timed windows,
+    a busy share in (0, 1], launches per window printed).  The kernels line
+    gains each kernel's launches on these paths.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -333,9 +352,10 @@ class Timing(NamedTuple):
     bound_by: str
 
 
-def kernel_vs_plain(label, code, llr, syn, max_iters, reps, alg="layered"):
-    """Kernel against the plain decoder on the same card inputs, with both
-    times, the device time and the bound."""
+def hold_to_plain(label, code, llr, syn, max_iters, alg="layered"):
+    """The kernel's bits, iterations and converged flags == the plain
+    decoder's on the same card inputs: (the plain result, its ms on the
+    host clock)."""
     import torch
     from qtpu_torch.ldpc.cuda_bp import make_cuda_decoder
     from qtpu_torch.ldpc.decode import (make_flooding_decoder,
@@ -350,10 +370,18 @@ def kernel_vs_plain(label, code, llr, syn, max_iters, reps, alg="layered"):
     ref = plain(llr, syn)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t)
-    err = max(int((got.bits.int() - ref.bits.int()).abs().max()),
-              int((got.iterations - ref.iterations).abs().max()),
-              int((got.converged.int() - ref.converged.int()).abs().max()))
-    assert err == 0, f"{label}: kernel disagrees with the plain decoder"
+    assert torch_equal(got, ref), \
+        f"{label}: kernel disagrees with the plain decoder"
+    return ref, plain_ms
+
+
+def kernel_vs_plain(label, code, llr, syn, max_iters, reps, alg="layered"):
+    """Kernel against the plain decoder on the same card inputs, with both
+    times, the device time and the bound."""
+    from qtpu_torch.ldpc.cuda_bp import make_cuda_decoder
+    kern = make_cuda_decoder(code, max_iters, alg=alg)
+    ref, plain_ms = hold_to_plain(label, code, llr, syn, max_iters, alg)
+    err = 0
     ms = time_cuda(lambda: kern(llr, syn), reps)
     dev_ms = graph_ms(lambda: kern(llr, syn), reps)
     iters = float(ref.iterations.float().mean())
@@ -959,6 +987,182 @@ def bench_phase(timeout, code, decode):
     return out, launches, wall, bound_ms
 
 
+def module_json(module, argv, timeout) -> tuple[dict, float]:
+    """``python -m module argv`` as a subprocess on this card, as a user
+    runs it; (its last line as JSON, its wall time in seconds)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t
+    assert proc.returncode == 0, \
+        f"{module} {' '.join(argv)} exited {proc.returncode}: " \
+        f"{proc.stderr[-3000:]}"
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    say(f"{module} {' '.join(argv)} ({wall:.1f} s): {json.dumps(out)}")
+    return out, wall
+
+
+def baseline_phase(dev) -> dict:
+    """Phase 18, first part: ``python -m qtpu_torch.baseline`` config1,
+    config2, config3, config5 and efficiency on this card, held to the
+    plain decoders, the CPU and a one-process program.  Returns each
+    config's BP kernel launches."""
+    import torch
+    from qtpu_torch import baseline
+    from qtpu_torch.ldpc.calibrate import fer_inputs, measure_fer
+    from qtpu_torch.ldpc.codes import make_rate_ladder, make_regular_code
+    from qtpu_torch.ldpc.cuda_bp import make_cuda_decoder
+    from qtpu_torch.ldpc.decode import make_layered_decoder
+    from qtpu_torch.parallel import make_mesh
+    c1, _ = module_json("qtpu_torch.baseline", ["config1"], 120)
+    assert c1["converged"] and c1["key_exact"], c1
+
+    c2, _ = module_json("qtpu_torch.baseline", ["config2"], 300)
+    rows = c2["sweep"]
+    assert c2["batch"] == 1024, c2
+    assert [r["qber"] for r in rows] == list(baseline.CONFIG2_QBERS), rows
+    for r in rows:   # a warm call and 20 timed ones per QBER
+        assert r["launches"] == {"bp_layered": 21, "bp_flooding": 0}, r
+    code = make_regular_code(4096)
+    q, llr, syn = baseline.config2_inputs(code, 1024, dev)[-1]
+    got = make_cuda_decoder(code, baseline.CONFIG2_ITERS)(llr, syn)
+    ref = make_layered_decoder(code, baseline.CONFIG2_ITERS)(llr, syn)
+    assert torch_equal(got, ref), f"config2 QBER {q}: kernel != plain"
+    iters = ref.iterations.cpu().numpy()
+    assert rows[-1]["iters_sum"] == int(iters.sum()), rows[-1]
+    assert rows[-1]["fer"] == 1.0 - float(ref.converged.cpu().numpy().mean())
+    for r in rows:
+        bound_ms, bound_by = decode_bound(code, c2["batch"], r["iters_sum"])
+        say(f"config2 QBER {r['qber']}: {r['gbit_s']} Gbit/s, {r['ms']} ms a "
+            f"call, iterations mean {r['iters_mean']} p99 {r['iters_p99']}, "
+            f"FER {r['fer']}; bound {bound_ms:.4f} ms ({bound_by}), share "
+            f"of bound {bound_ms / r['ms']:.4f}")
+    say(f"config2 QBER {q}: the layered kernel's bits, iterations and "
+        f"converged flags on config 2's own inputs == the plain decoder's")
+
+    c3, _ = module_json("qtpu_torch.baseline", ["config3"], 300)
+    ladder = make_rate_ladder(4096)
+    assert [r["rung"] for r in c3["rungs"]] == [s.name for s in ladder.steps]
+    for r in c3["rungs"]:
+        assert r["launches"] == {"bp_layered": 0, "bp_flooding": 1}, r
+    # The flooding kernel on config 3's own inputs, every rung (other
+    # mother codes, punctured and shortened ones included).
+    for idx, (step, r) in enumerate(zip(ladder.steps, c3["rungs"])):
+        _, llr, syn, _ = fer_inputs(step, r["qber"], 256, seed=idx,
+                                    device=dev)
+        ref, _ = hold_to_plain(f"config3 rung {r['rung']}", step.code, llr,
+                               syn, 60, alg="minsum")
+        assert round(float(ref.iterations.double().mean()), 1) == \
+            r["iters_mean"], (r, float(ref.iterations.double().mean()))
+    say(f"config3: the flooding kernel's bits, iterations and converged "
+        f"flags on every rung's own inputs (B = 256) == the plain "
+        f"decoder's")
+    # The CPU's plain decoder on the first rung, the punctured rung 1 and
+    # the last rung (all five take ~40 s of the host).
+    for idx in (0, 1, len(ladder.steps) - 1):
+        r = c3["rungs"][idx]
+        fer, it = measure_fer(ladder.steps[idx], r["qber"], blocks=256,
+                              seed=idx, device="cpu")
+        assert (r["fer"], r["iters_mean"]) == (round(fer, 4), round(it, 1)), \
+            f"config3 rung {r['rung']}: card {r} != cpu {fer} {it}"
+    say("config3: rungs 0, 1 (punctured) and "
+        f"{len(ladder.steps) - 1}: card (fer, iters_mean) == the CPU's")
+
+    c5, _ = module_json("qtpu_torch.baseline", ["config5"], 300)
+    assert c5["ok"] and c5["ledgers_agree"], c5
+    one = baseline.config5_window(dev, make_mesh(
+        devices=[dev] * baseline.CONFIG5_SHARDS))
+    assert json.loads(c5["global_ledger"]) == one, (c5, one)
+    assert c5["launches"] == {"bp_layered": 0, "bp_flooding": 8}, c5
+    cpu = torch.device("cpu")
+    on_cpu = baseline.config5_window(cpu, make_mesh(
+        devices=[cpu] * baseline.CONFIG5_SHARDS))
+    assert on_cpu == one, (on_cpu, one)
+    say(f"config5: both ranks' psum'd ledger == the one-process 8-shard "
+        f"program's on the card == on the CPU (plain decoders) {one}")
+
+    ef, _ = module_json("qtpu_torch.baseline", ["efficiency"], 400)
+    assert [r["qber"] for r in ef["rows"]] == list(baseline.EFFICIENCY_QBERS)
+    for r in ef["rows"]:
+        assert r["final_bits"] == r["key_bits"], r
+        assert r["qber"] > 0.05 or r["key_bits"] > 0, r
+    assert ef["launches"]["bp_layered"] > 0, ef
+    efficiency_ladder_holds(dev)
+    return {name: out["launches"] for name, out in
+            (("config2", c2), ("config3", c3), ("config5", c5),
+             ("efficiency", ef))}
+
+
+def efficiency_ladder_holds(dev) -> None:
+    """Phase 18: the layered kernel on every rung of the ladder the
+    efficiency sweep's sessions run (``PipelineConfig(n=4096,
+    blocks_per_window=64)``: the mixed ladder of the sessions' code seed,
+    its own mother codes and punctured rungs), at each rung's calibrated
+    ceiling, held to the plain decoder at the window's B = 64 and at the
+    retry's 8 rows with a tenth of n pinned at +-BIG, as the sessions pin
+    disclosed and shortened bits."""
+    from qtpu_torch.ldpc.calibrate import fer_inputs
+    from qtpu_torch.ldpc.codes import make_rate_ladder
+    from qtpu_torch.pipeline import PipelineConfig
+    cfg = PipelineConfig(n=4096, blocks_per_window=64, qber_test_bits=8192)
+    ladder = make_rate_ladder(cfg.n, cfg.dv, cfg.target_rates,
+                              seed=cfg.code_seed, alg=cfg.alg,
+                              family=cfg.family)
+    rows = []
+    for idx, step in enumerate(ladder.steps):
+        q = ladder.max_qber[idx] or 0.02
+        for B, pinned in ((cfg.blocks_per_window, 0), (8, cfg.n // 10)):
+            _, llr, syn, _ = fer_inputs(step, q, B, seed=180 + idx,
+                                        extra_short_bits=pinned, device=dev)
+            ref, _ = hold_to_plain(f"efficiency rung {step.name} B={B}",
+                                   step.code, llr, syn, cfg.max_iters)
+            rows.append(f"{step.name} B={B}: "
+                        f"{int(ref.converged.sum())}/{B} converged, "
+                        f"iterations mean "
+                        f"{float(ref.iterations.double().mean()):.2f}")
+    say(f"efficiency ladder (layered, QBER at each rung's ceiling): the "
+        f"kernel == the plain decoder on every rung at B = 64 and at 8 rows "
+        f"with n/10 pinned; " + "; ".join(rows))
+
+
+def torch_equal(got, ref) -> bool:
+    """Two BatchDecodeResults hold the same bits, iterations and flags."""
+    import torch
+    return (torch.equal(got.bits, ref.bits)
+            and torch.equal(got.iterations, ref.iterations)
+            and torch.equal(got.converged, ref.converged))
+
+
+def profiling_phase() -> dict:
+    """Phase 18, second part: ``python -m qtpu_torch.profiling programs
+    10`` and ``chain 6`` on this card.  Returns their summed BP kernel
+    launches."""
+    from qtpu_torch.profiling import PROGRAMS
+    pr, _ = module_json("qtpu_torch.profiling", ["programs", "10"], 300)
+    for name in PROGRAMS:
+        assert pr["launches"][name] > 0, (name, pr["launches"])
+        assert pr["device_ms"][name] <= 1.05 * pr[name], \
+            (name, pr["device_ms"][name], pr[name])
+    assert pr["bp_launches"]["decode_only"] == {"bp_layered": 1.0,
+                                                "bp_flooding": 0.0}, pr
+    ch, _ = module_json("qtpu_torch.profiling", ["chain", "6"], 400)
+    tr = ch["trace"]
+    # The reference's loop stops once Bob has settled 6 windows; a flush
+    # may settle two at once.
+    assert ch["windows"] >= 6 and 0 < tr["busy_share"] <= 1, ch
+    say(f"profiling chain: {ch['windows']} timed windows, "
+        f"{ch['window_ms']} ms a window, busy share {tr['busy_share']} "
+        f"({tr['busy_ms_per_window']} busy ms a window in {tr['windows']} "
+        f"traced ones; {tr['busy_share_of']}; timed mix {ch['mix']}, traced "
+        f"mix {tr['mix']}); {tr['launches_per_window']} kernel launches and "
+        f"{tr['kernel_ms_per_window']} kernel ms a window")
+    return {k: pr["bp_launches_total"][k] + ch["bp_launches_total"][k]
+            for k in pr["bp_launches_total"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1321,6 +1525,17 @@ def main() -> int:
     say(f"bench ({bench_s:.1f} s; launches {bench_launches}): "
         f"{json.dumps(bench_out)}")
 
+    # 18. the measuring scripts, as subprocesses
+    t = time.perf_counter()
+    measured = baseline_phase(dev)
+    measured["profiling"] = profiling_phase()
+    say(f"measuring scripts: {time.perf_counter() - t:.1f} s; BP launches "
+        f"{measured}")
+
+    def path_launches(kernel):
+        return {f"launches_{name}": counts[kernel]
+                for name, counts in measured.items()}
+
     say(json.dumps({"kernels": [{
         "name": "bp_layered", "route": "cuda",
         "source": "qtpu_torch/csrc/bp_layered.cu",
@@ -1333,6 +1548,7 @@ def main() -> int:
         "launches_two_processes": two_launches,
         "launches_bench": {k: v["bp_layered"]
                            for k, v in bench_launches.items()},
+        **path_launches("bp_layered"),
         "launches_per_window": round(per_window, 4),
         "launch_batches": {str(b): c for b, c in sorted(prod_batches.items())},
         "sharded_ms": round(sh_ms, 4), "unsharded_ms": round(sh_ms1, 4),
@@ -1355,6 +1571,7 @@ def main() -> int:
         "launches_cli_demo": demo_launches["bp_flooding"],
         "launches_cli_fer": fer_launches["bp_flooding"],
         "launches_sharded_decode_call": sh_f,
+        **path_launches("bp_flooding"),
         "launches_per_window": round(f_per_window, 4),
         "sharded_ms": round(shf_ms, 4), "unsharded_ms": round(shf_ms1, 4),
         "max_abs_err": float(f_err),

@@ -26,6 +26,8 @@ Toeplitz hashes (``pa``, torch.fft), the window programs
 syndrome encoder (``ldpc.encode``) and the layered and flooding min-sum
 decoders: plain PyTorch (``ldpc.decode``) and the Hopper kernels
 (``ldpc.cuda_bp`` + ``csrc/bp_layered.cu``, ``csrc/bp_flooding.cu``).
+The repo's measuring scripts: the bench (``bench``), the BASELINE configs
+and the efficiency sweep (``baseline``) and the profilers (``profiling``).
 """
 
 __version__ = "0.1.0"

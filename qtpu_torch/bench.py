@@ -49,7 +49,6 @@ import argparse
 import collections
 import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -59,7 +58,8 @@ import torch
 
 from qtpu_torch import _build
 from qtpu_torch import pipeline as _pipeline
-from qtpu_torch.devices import DEFAULT_DEVICE, resolve_device
+from qtpu_torch.devices import (DEFAULT_DEVICE, device_name, entry_device,
+                                resolve_device)
 from qtpu_torch.link import DirectLink
 
 __all__ = ["device_bsc_stream", "measure_full_chain", "measure_party",
@@ -497,13 +497,6 @@ def synth_frames(rng, F, n_events, span, pair_frac=0.5, window=40):
     return ta, da, tb, db
 
 
-def _nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def _cpuinfo() -> dict:
     """{field: [values]} of /proc/cpuinfo (empty where there is none)."""
     path = Path("/proc/cpuinfo")
@@ -679,8 +672,7 @@ def run(dev: torch.device) -> tuple[dict, dict]:
         launches[name] = dict(cuda_bp.launches)
         return out
 
-    extra = {"device": _nvidia_smi() if dev.type == "cuda" else "cpu",
-             "host": _host()}
+    extra = {"device": device_name(dev), "host": _host()}
     # The decoder's bits/s labels a run whose chains were skipped.
     value_bits = counted("decode", lambda: _decode_alone(dev, extra))
     value_kind = "decode_only"
@@ -764,16 +756,7 @@ def main(argv=None) -> int:
                    help="torch device to measure (default cuda; fails when "
                         "CUDA is missing)")
     args = p.parse_args(argv)
-    try:
-        dev = resolve_device(args.device)
-    except RuntimeError:
-        raise SystemExit(f"qtpu_torch.bench: --device {args.device}: CUDA "
-                         f"is not available (pass --device cpu to run on "
-                         f"the CPU)")
-    if dev.type == "cuda":
-        # The verify hash is an exact float32 product.
-        torch.backends.cuda.matmul.allow_tf32 = False
-    out, launches = run(dev)
+    out, launches = run(entry_device("qtpu_torch.bench", args.device))
     print("bench launches: " + json.dumps(launches), flush=True)
     print(json.dumps(out), flush=True)
     ARTIFACT.parent.mkdir(parents=True, exist_ok=True)

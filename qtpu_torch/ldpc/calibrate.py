@@ -4,7 +4,7 @@ Counterpart of ``qtpu/ldpc/calibrate.py``: for each ladder rung, measure
 the frame-error rate on simulated BSC batches and record the largest QBER
 whose FER stays under a target; ``RateLadder.select`` then picks the
 highest rung whose ceiling admits the estimate.  The measuring tools decode
-through the sessions' decoder choice (``window_programs._pick_decoder``):
+through the sessions' decoder (``qtpu_torch.ldpc.decode.make_batch_decoder``):
 the Hopper kernels on a CUDA device, their plain PyTorch versions on the
 CPU (sum-product, which had no TPU kernel, is plain PyTorch on both); the
 error flags are reduced on the device, so only the FER and the mean
@@ -24,10 +24,10 @@ import torch
 
 from qtpu_torch.devices import DEFAULT_DEVICE, resolve_device
 from qtpu_torch.ldpc.codes import RateLadder, RateStep, make_rate_ladder
-from qtpu_torch.ldpc.decode import BIG_LLR
+from qtpu_torch.ldpc.decode import BIG_LLR, make_batch_decoder
 from qtpu_torch.ldpc.encode import make_batch_encoder
 
-__all__ = ["measure_fer", "calibrate_ladder", "calibrate_short",
+__all__ = ["measure_fer", "fer_inputs", "calibrate_ladder", "calibrate_short",
            "ceiling_bisect", "SHORT_FRACS", "DEFAULT_CALIBRATION",
            "DEFAULT_SHORT_CALIBRATION", "FINE_CALIBRATION"]
 
@@ -44,31 +44,18 @@ def _positions(step: RateStep):
             expand(step.punct_cols), expand(step.short_cols))
 
 
-def measure_fer(step: RateStep, qber: float, blocks: int = 256, seed: int = 0,
-                max_iters: int = 60, alg: str = "minsum",
-                extra_short_bits: int = 0, alpha: float = 0.8125,
-                device=DEFAULT_DEVICE,
-                _cache: dict = {}) -> tuple[float, float]:
-    """Simulate `blocks` reconciliations at the given true QBER on
-    ``device``.
-
-    Returns (frame error rate, mean BP iterations).  A frame errs if the
-    decoded payload differs from Alice's payload anywhere (verification-hash
-    failures in the real pipeline).  The inputs are the reference's, drawn
-    from ``seed`` with numpy, so both packages measure the same batch.
-
-    extra_short_bits: payload positions additionally pinned to known values
-    (LLR ±BIG) — the fine rate-adaptation mechanism; errors are counted on
-    the remaining (true payload) positions only.
-    """
-    from qtpu_torch.window_programs import _pick_decoder
+def fer_inputs(step: RateStep, qber: float, blocks: int = 256,
+               seed: int = 0, extra_short_bits: int = 0,
+               device=DEFAULT_DEVICE, _cache: dict = {}):
+    """``measure_fer``'s batch on ``device``, drawn from ``seed`` with
+    numpy as the reference draws it: (codewords (B, n) uint8, llr (B, n)
+    float32, syndromes (B, m) uint8, the payload positions that count).
+    Payload LLRs come from a BSC(qber), punctured columns are 0, shortened
+    columns and ``extra_short_bits`` payload positions +-BIG."""
     device = resolve_device(device)
     code = step.code
-    ck = (id(step.code), max_iters, alg, alpha)
-    if ck not in _cache:
-        _cache[ck] = (make_batch_encoder(code),
-                      _pick_decoder(code, max_iters, alg, alpha))
-    enc, dec = _cache[ck]
+    if id(code) not in _cache:
+        _cache[id(code)] = make_batch_encoder(code)
     pay, pun, sho = _positions(step)
     rng = np.random.default_rng(seed)
     if extra_short_bits:
@@ -80,7 +67,7 @@ def measure_fer(step: RateStep, qber: float, blocks: int = 256, seed: int = 0,
     B, n = blocks, code.n
     x = rng.integers(0, 2, (B, n)).astype(np.uint8)       # incl punct+short fill
     x_dev = torch.from_numpy(x).to(device)
-    syn = enc(x_dev).contiguous()
+    syn = _cache[id(code)](x_dev).contiguous()
     noise = (rng.random((B, pay.size)) < qber).astype(np.uint8)
     y_pay = x[:, pay] ^ noise
     mag = np.float32(np.log((1.0 - qber) / qber))
@@ -88,7 +75,34 @@ def measure_fer(step: RateStep, qber: float, blocks: int = 256, seed: int = 0,
     llr[:, pay] = np.where(y_pay.astype(bool), -mag, mag)
     if sho.size:
         llr[:, sho] = np.where(x[:, sho].astype(bool), -BIG_LLR, BIG_LLR)
-    res = dec(torch.from_numpy(llr).to(device), syn)
+    return x_dev, torch.from_numpy(llr).to(device), syn, pay
+
+
+def measure_fer(step: RateStep, qber: float, blocks: int = 256, seed: int = 0,
+                max_iters: int = 60, alg: str = "minsum",
+                extra_short_bits: int = 0, alpha: float = 0.8125,
+                device=DEFAULT_DEVICE,
+                _cache: dict = {}) -> tuple[float, float]:
+    """Simulate `blocks` reconciliations at the given true QBER on
+    ``device``.
+
+    Returns (frame error rate, mean BP iterations).  A frame errs if the
+    decoded payload differs from Alice's payload anywhere (verification-hash
+    failures in the real pipeline).  The inputs are the reference's
+    (``fer_inputs``), drawn from ``seed`` with numpy, so both packages
+    measure the same batch.
+
+    extra_short_bits: payload positions additionally pinned to known values
+    (LLR ±BIG) — the fine rate-adaptation mechanism; errors are counted on
+    the remaining (true payload) positions only.
+    """
+    device = resolve_device(device)
+    ck = (id(step.code), max_iters, alg, alpha)
+    if ck not in _cache:
+        _cache[ck] = make_batch_decoder(step.code, max_iters, alg, alpha)
+    x_dev, llr, syn, pay = fer_inputs(step, qber, blocks, seed,
+                                      extra_short_bits, device)
+    res = _cache[ck](llr, syn)
     pay_dev = torch.from_numpy(pay).to(device)
     errs = (res.bits[:, pay_dev] != x_dev[:, pay_dev]).any(dim=1)
     stats = torch.stack([errs.to(torch.float64).mean(),

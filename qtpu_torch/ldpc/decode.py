@@ -13,7 +13,9 @@ The min-sum decoders are the plain versions beside the Hopper kernels
 (``qtpu_torch.ldpc.cuda_bp``): the CPU path of the pipeline runs them, the
 tests hold them to the JAX decoders, and ``chip_smoke.py`` holds the kernels
 to them on the card.  Sum-product had no TPU kernel (XLA only in the
-reference): this plain form is its port on every device.  Layout is the
+reference): this plain form is its port on every device.
+``make_batch_decoder`` keeps the reference's name and signature and hands
+out the sessions' decoder: the kernel on CUDA tensors.  Layout is the
 natural ``(B, nb, z)``: each base column or edge is a ``(B, z)`` slice and a
 circulant permutation is ``torch.roll`` along z.
 """
@@ -26,8 +28,9 @@ import torch
 
 from qtpu_torch.ldpc.codes import QCCode
 
-__all__ = ["make_layered_decoder", "make_flooding_decoder",
-           "BatchDecodeResult", "channel_llr", "BIG_LLR"]
+__all__ = ["make_batch_decoder", "make_layered_decoder",
+           "make_flooding_decoder", "BatchDecodeResult", "channel_llr",
+           "BIG_LLR"]
 
 BIG_LLR = 1e9  # shortened-bit prior magnitude (matches golden.BIG_LLR)
 
@@ -49,6 +52,19 @@ class BatchDecodeResult(NamedTuple):
     bits: torch.Tensor        # (B, n) uint8 hard decisions (all n variables)
     converged: torch.Tensor   # (B,) bool
     iterations: torch.Tensor  # (B,) int32 — sweeps consumed
+
+
+def make_batch_decoder(code: QCCode, max_iters: int = 50, alg: str = "minsum",
+                       alpha: float = 0.8125):
+    """The reference's decoder API (``qtpu.ldpc.decode.make_batch_decoder``):
+    ``(llr (B,n) f32, syndrome (B,m)) -> BatchDecodeResult`` for ``alg``
+    "layered", "minsum" (flooding) or "sumprod".  It is the decoder of the
+    window programs and the FER tools: each min-sum schedule as its Hopper
+    kernel on CUDA tensors and its plain version on CPU tensors;
+    sum-product, which had no TPU kernel, plain on both.  It takes any
+    batch on any device, so one decoder serves every shard."""
+    from qtpu_torch.ldpc.cuda_bp import make_cuda_decoder
+    return make_cuda_decoder(code, max_iters, alpha=alpha, alg=alg)
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:

@@ -7,11 +7,12 @@ rolls and XORs, one per base edge, in the natural ``(B, nb, z)`` layout.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from qtpu_torch.ldpc.codes import QCCode
 
-__all__ = ["make_batch_encoder"]
+__all__ = ["make_batch_encoder", "encode_syndrome_batch"]
 
 
 def make_batch_encoder(code: QCCode):
@@ -33,3 +34,9 @@ def make_batch_encoder(code: QCCode):
         return torch.stack(syn, dim=1).reshape(b, mb * z)
 
     return encode
+
+
+def encode_syndrome_batch(code: QCCode, bits: np.ndarray) -> np.ndarray:
+    """Convenience eager wrapper (tests): (B, n) numpy bits -> (B, m) uint8
+    syndromes, encoded on the CPU."""
+    return make_batch_encoder(code)(torch.from_numpy(np.asarray(bits))).numpy()

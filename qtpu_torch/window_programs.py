@@ -49,8 +49,7 @@ from qtpu_torch.accounting import LEDGER_FIELDS
 from qtpu_torch.ldpc.codes import QCCode
 from qtpu_torch.pa import _toeplitz_hash
 from qtpu_torch.parallel import psum_ledger
-from qtpu_torch.ldpc.cuda_bp import make_cuda_decoder
-from qtpu_torch.ldpc.decode import BIG_LLR
+from qtpu_torch.ldpc.decode import BIG_LLR, make_batch_decoder
 from qtpu_torch.ldpc.encode import make_batch_encoder
 
 __all__ = ["WindowPrograms", "make_window_programs", "make_header",
@@ -111,15 +110,6 @@ class WindowPrograms(NamedTuple):
     retry_bits: int  # retry disclosure bits per block
 
 
-def _pick_decoder(code: QCCode, max_iters: int, alg: str,
-                  alpha: float = 0.8125):
-    """The decoder of ``alg``: layered or flooding ("minsum") min-sum as
-    its Hopper kernel on CUDA tensors and its plain PyTorch version on CPU
-    tensors; sum-product ("sumprod") as plain PyTorch on both.  It takes
-    any batch on any device, so one decoder serves every shard."""
-    return make_cuda_decoder(code, max_iters, alpha=alpha, alg=alg)
-
-
 def _check_exact_matmul(x: torch.Tensor) -> None:
     # The verify hash is an exact GF(2) product through a float32 matmul:
     # products are 0/1 and sums <= P <= 2^17 < 2^24, exact only without TF32.
@@ -160,7 +150,7 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         if len(punct_pos) else np.zeros(0, np.int64)
     short_cols = np.unique(np.asarray(short_pos, np.int64) // code.z) \
         if len(short_pos) else np.zeros(0, np.int64)
-    decoder = _pick_decoder(code, max_iters, alg)
+    decoder = make_batch_decoder(code, max_iters, alg)
     encode = make_batch_encoder(code)
     nb, z = code.nb, code.z
     if mesh is not None and B % mesh.size:

@@ -471,6 +471,47 @@ def test_measure_fer_card_matches_cpu(dev):
     assert got == measure_fer(step, 0.05, blocks=64, seed=2, device="cpu")
 
 
+def test_baseline_config2_on_card_matches_plain(dev):
+    """BASELINE config 2 at its full width (B = 1024, n = 4096, 60
+    iterations, QBER 1-5%): every row from the layered kernel equals the
+    plain decoder's on the same inputs on the card, per block."""
+    from qtpu_torch import baseline
+    out = baseline.config2(dev)
+    assert out["batch"] == 1024
+    code = make_regular_code(4096)
+    kern = cuda_bp.make_cuda_decoder(code, baseline.CONFIG2_ITERS)
+    plain = make_layered_decoder(code, baseline.CONFIG2_ITERS)
+    for row, (q, llr, syn) in zip(out["sweep"],
+                                  baseline.config2_inputs(code, 1024, dev)):
+        ref = plain(llr, syn)
+        _same(kern(llr, syn), ref)
+        iters = ref.iterations.cpu().numpy()
+        assert row["qber"] == q
+        assert row["fer"] == 1.0 - float(ref.converged.cpu().numpy().mean())
+        assert row["iters_mean"] == round(float(iters.mean()), 2)
+        assert row["iters_p99"] == int(np.percentile(iters, 99))
+        assert row["iters_sum"] == int(iters.sum())
+        assert row["launches"] == {"bp_layered": 21, "bp_flooding": 0}
+
+
+def test_baseline_config3_on_card_matches_plain(dev):
+    """BASELINE config 3 on the card (the flooding kernel, every rung of
+    the n = 4096 mixed ladder): the first and the last rung equal
+    ``measure_fer`` on the CPU (the plain decoder) on the same seed."""
+    from qtpu_torch import baseline
+    from qtpu_torch.ldpc.calibrate import measure_fer
+    out = baseline.config3(dev)
+    ladder = make_rate_ladder(4096)
+    assert [r["rung"] for r in out["rungs"]] == [s.name for s in ladder.steps]
+    for idx in (0, len(ladder.steps) - 1):
+        row = out["rungs"][idx]
+        fer, iters = measure_fer(ladder.steps[idx], row["qber"], blocks=256,
+                                 seed=idx, device="cpu")
+        assert (row["fer"], row["iters_mean"]) == (round(fer, 4),
+                                                   round(iters, 1))
+        assert row["launches"] == {"bp_layered": 0, "bp_flooding": 1}
+
+
 # -- the mesh: shards of one card, shards on several cards, NCCL processes --
 
 def _cards(k):

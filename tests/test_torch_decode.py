@@ -31,10 +31,10 @@ from qtpu.ldpc.encode import make_batch_encoder
 from qtpu.ldpc.pallas_bp import make_pallas_decoder
 from qtpu_torch.ldpc import cuda_bp
 from qtpu_torch.ldpc.codes import code_from_reference, make_rate_ladder
+from qtpu_torch.ldpc import decode as tdecode
 from qtpu_torch.ldpc.decode import (BatchDecodeResult, _minsum_row,
                                     make_flooding_decoder,
                                     make_layered_decoder)
-from qtpu_torch.window_programs import _pick_decoder
 
 MAX_ITERS = 40
 
@@ -434,9 +434,10 @@ def test_flooding_kernel_walk(flooding, flooding_walk, ref):
 
 
 def _sumprod(code, llr, syn):
-    """The port's sum-product through the sessions' decoder choice."""
+    """The port's sum-product through the sessions' decoder."""
     before = dict(cuda_bp.launches)
-    res = _pick_decoder(code_from_reference(code), MAX_ITERS, "sumprod")(
+    res = tdecode.make_batch_decoder(code_from_reference(code), MAX_ITERS,
+                                     "sumprod")(
         torch.from_numpy(llr), torch.from_numpy(syn))
     assert cuda_bp.launches == before    # no kernel: plain on every device
     return res
@@ -476,7 +477,8 @@ def test_sumprod_vs_golden(flooding):
 
 def test_pick_decoder_routes_minsum_to_flooding(flooding):
     code, llr, syn, res = flooding
-    got = _pick_decoder(code_from_reference(code), MAX_ITERS, "minsum")(
+    got = tdecode.make_batch_decoder(code_from_reference(code), MAX_ITERS,
+                                     "minsum")(
         torch.from_numpy(llr), torch.from_numpy(syn))
     _assert_same(res, got)
 

@@ -58,7 +58,7 @@ def test_no_module_imports_jax():
         " 'qtpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 33, names\n"
+        "assert len(names) >= 35, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'qtpu' or m.startswith('qtpu.')]\n"
         "assert not bad, bad\n")
@@ -85,6 +85,21 @@ def test_bench_imports_no_jax():
     """The bench runs on the card's machine, which has no JAX."""
     code = ("import sys\n"
             "import qtpu_torch.bench\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'qtpu')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["qtpu_torch.baseline",
+                                    "qtpu_torch.profiling"])
+def test_measuring_module_imports_no_jax(module):
+    """The measuring scripts run on the card's machine, which has no JAX."""
+    code = ("import sys\n"
+            f"import {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'qtpu')]\n"
             "assert not bad, bad\n")
