@@ -6,8 +6,9 @@
 Phases (each prints one flushed line; any failure ends the run non-zero):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both BP kernels from qtpu_torch/csrc/, one nvcc each, in
-   parallel, with each kernel entry's registers and spills (-Xptxas -v);
+2. build: both BP kernels and the threefry kernel from qtpu_torch/csrc/,
+   one nvcc each, in parallel, with each kernel entry's registers and
+   spills (-Xptxas -v);
 3. layered kernel vs its plain PyTorch decoder, bits / iterations /
    converged equal, at a production native3 rung (n = 65536, B = 128 and
    B = 8), at every native3 rung of n = 65536 at B = 8 (the cluster size
@@ -32,11 +33,26 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    one round from blocks that never converge (regular n = 4096 at B = 1
    and 1024, the native3 rung at B = 1);
 5. the PA FFT's integer margin at the production shape (< 0.25);
+5b. threefry: each entry point of ``qtpu_torch/csrc/threefry.cu`` == its
+   plain PyTorch version (``qtpu_torch.random``'s ``*_plain``) bit for
+   bit on the card, at every rung of the production ladder (the PA seed,
+   B = 128 rows of P + l_max - 1 bits; the verify seed, P + 63 bits; the
+   puncture pad; the 128 test offsets in [0, P)), at retry_small's 8
+   index rows, at 4 shards' row0 offsets (their rows == the unsharded
+   draw's), at the shortening fill's draw (B = 128, one z = 2,048 column)
+   and on one 2^23-bit chunk of the bench's BSC stream (fold_in, split,
+   bits, uniform); at the production rung each draw's call time, the
+   device time of a CUDA-graph replay, the plain version's time and the
+   bound (bytes at 3.35 TB/s, or the cipher's shifts and xors on the
+   64-lane INT32 pipe with its adds free to issue on the FMA pipe), and no
+   library call (no PyTorch call computes threefry2x32);
 6. session: production_config(), Alice and Bob on this card over a direct
    link, fed a BSC(3%) stream generated on the card, for 20 windows —
    identical non-empty keys, equal ledgers, FER <= 0.05, a rung switch, a
    retry round, and the layered kernel launched by the session (its
-   launches per window and their batch sizes printed);
+   launches per window and their batch sizes printed); the threefry
+   kernel's seed-row and offset entry points launched (per window
+   printed), and no plain int64 threefry op and no key fill run;
 7. min-sum session: n = 4096 mixed ladder, flooding decoder, B = 1024, the
    same checks, and only the flooding kernel launched;
 8. chain: the events -> key entry point (simulated detector events at 10^7
@@ -93,7 +109,8 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     are clean, the two-party FER <= 0.05, every decode-alone block
     converged, the measured copy bandwidth is below 1.05 x 3,350 GB/s, and
     its ``bench launches`` line shows the layered kernel launched by every
-    measurement; the bound of its decode-alone call, from the iterations
+    measurement and the threefry kernel's three entry points by both
+    parties' and Bob's sessions (the BSC stream, the window programs); the bound of its decode-alone call, from the iterations
     the bench's own call reported, equals phase 3's on the same inputs and
     is printed with the share of bound.  The line is printed;
 18. the measuring scripts as subprocesses on this card, each JSON line
@@ -112,9 +129,11 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     retry's 8 rows with n/10 bits pinned); ``python -m
     qtpu_torch.profiling programs 10`` (every program
     launches kernels, device ms <= 1.05 x call ms, decode_only launches
-    the layered kernel once a call) and ``chain 6`` (>= 6 timed windows,
-    a busy share in (0, 1], launches per window printed).  The kernels line
-    gains each kernel's launches on these paths.
+    the layered kernel once a call, pa_seed_gen one threefry kernel a call)
+    and ``chain 6`` (>= 6 timed windows, a busy share in (0, 1], launches
+    per window printed, no int64 elementwise kernel among the top
+    kernels).  The kernels line gains each kernel's launches on these
+    paths.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -122,12 +141,14 @@ card's name and power limit, and the one before that the kernels' JSON.
 
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 from typing import NamedTuple
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 QBER = 0.03
@@ -214,7 +235,7 @@ def decode_bound(code, B, iters_sum):
 def ptxas_summary(log: str) -> list:
     """Per kernel entry of an ``-Xptxas -v`` log: registers and spills,
     each instantiation named by row width and layout (the layered kernel's
-    also by its thread family)."""
+    also by its thread family), a plain kernel by its name."""
     import re
     out, name, spills = [], None, ""
     for ln in log.splitlines():
@@ -222,8 +243,9 @@ def ptxas_summary(log: str) -> list:
         if m:
             t = re.search(r"ILi(\d+)ELb([01])E(?:Li(\d+)ELi(\d+)E)?",
                           m.group(1))
+            plain = re.search(r"\d([a-z][a-z_]*_kernel)E", m.group(1))
             layout = "cluster" if t and t.group(2) == "1" else "one CTA"
-            name = (m.group(1) if not t else
+            name = ((plain.group(1) if plain else m.group(1)) if not t else
                     f"<dmax {t.group(1)}, {layout}>" if t.group(3) is None
                     else f"<dmax {t.group(1)}, {layout}, {t.group(3)} "
                          f"threads x {t.group(4)} per SM>")
@@ -396,18 +418,220 @@ def kernel_vs_plain(label, code, llr, syn, max_iters, reps, alg="layered"):
     return Timing(err, ms, dev_ms, plain_ms, bound_ms, bound_by)
 
 
+# The card's int32 issue outside the tensor cores, from the Hopper
+# architecture white paper's SM (the data sheet gives no int32 rate): shifts
+# and logic ops run on the INT32 pipe, 64 lanes an SM; integer adds may also
+# issue as IMAD on the FMA pipe; an SM issues at most 128 lane operations a
+# clock.  132 SMs at 1.98 GHz.
+ALU_OPS_PER_S = 64 * 132 * 1.98e9
+ISSUE_OPS_PER_S = 128 * 132 * 1.98e9
+
+
+def cipher_ops(ciphers, keys, words):
+    """(shift and logic ops, adds) of ``ciphers`` threefry2x32 calls whose
+    counter's high word is 0, on ``keys`` distinct keys, ``words`` of them
+    taken as x0 ^ x1.  A call: one add for x1's first key word (x0's is a
+    move), 20 rounds of an add, a rotate (one funnel shift) and an xor, and
+    5 injections of two adds.  A key: its third word (one three-input xor)
+    and the injection constants folded into its schedule (5 adds).  A word:
+    its xor."""
+    return 40 * ciphers + keys + words, 31 * ciphers + 5 * keys
+
+
+def threefry_bound(nbytes, ops):
+    """The least time the card could take for one threefry draw: (ms,
+    "bytes" or "operations").  Bytes: the draw's inputs read once and its
+    output written once; operations: ``ops`` = (shift and logic ops, adds)
+    of the cipher calls it needs, the former on the INT32 pipe alone, all
+    of them within the SM's issue rate."""
+    alu, adds = ops
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(alu / ALU_OPS_PER_S, (alu + adds) / ISSUE_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+class Draw(NamedTuple):
+    err: int            # max |kernel - plain| over the draw's values
+    ms: float           # one call, CUDA events over back-to-back calls
+    device_ms: float    # one launch replayed from a CUDA graph
+    plain_ms: float     # the plain version on the card, host clock
+    bound_ms: float
+    bound_by: str
+
+
+def hold_draw(label, fn, plain, nbytes=0, ops=(0, 0), reps=0):
+    """The kernel's draw ``fn()`` == its plain version ``plain()`` on the
+    card, bit for bit; with ``reps``, also its times and bound (a Draw,
+    printed), else None."""
+    import torch
+    got = fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    assert got.dtype == want.dtype and got.shape == want.shape, \
+        f"threefry {label}: {got.dtype} {tuple(got.shape)} != plain " \
+        f"{want.dtype} {tuple(want.shape)}"
+    def ints(t):   # float32 draws compare as their bit patterns
+        return (t.view(torch.int32) if t.is_floating_point()
+                else t).to(torch.int64)
+    err = int((ints(got) - ints(want)).abs().max()) if got.numel() else 0
+    assert err == 0, f"threefry {label}: kernel != plain (max err {err})"
+    if not reps:
+        return None
+    ms = time_cuda(fn, reps)
+    dev_ms = graph_ms(fn, reps)
+    bound_ms, bound_by = threefry_bound(nbytes, ops)
+    say(f"threefry {label}: {tuple(got.shape)} {got.dtype} == plain; "
+        f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.2f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}) share_of_bound "
+        f"{bound_ms / dev_ms:.4f} (device) library_ms=null")
+    return Draw(err, ms, dev_ms, plain_ms, bound_ms, bound_by)
+
+
+def threefry_phase(dev, cfg, ladder, probe) -> dict:
+    """Phase 5b: the threefry kernel's three entry points == their plain
+    versions on the card at the main path's shapes (``probe``: a
+    BobSession of ``cfg`` on ``ladder``); timed at the rung Bob's 3% prior
+    selects (as ``qtpu_torch.profiling programs``) and on the bench's
+    chunk.  Returns {entry point: Draw} of the timed draws that represent
+    each (the PA seed, the test offsets, the bench chunk's bits)."""
+    import numpy as np
+    import torch
+    from qtpu_torch import random as tr
+    from qtpu_torch.link import make_direct_pair
+    from qtpu_torch.pipeline import BobSession
+    from qtpu_torch.window_programs import (TAG_SHORTFILL, TAG_TOFF,
+                                            TAG_VERIFY)
+    prior = BobSession(cfg, 0x5E55, make_direct_pair()[1], device=dev)
+    prior.qest.update_prior(QBER * 1e6, 1e6)
+    rung = prior._choose()[1]
+    rng = np.random.default_rng(55)
+    wkey, pkey, pakey = (rng.integers(0, 2**32, 2, dtype=np.uint64)
+                         .astype(np.uint32) for _ in range(3))
+    B, Vh = cfg.blocks_per_window, cfg.verify_hash_bits
+
+    # The least cipher work of a draw: the tag chain once (each tag one
+    # call on a new key), each row's fold once on the tagged key, then each
+    # word (seed rows: W a row on the row's key) or each row's randint
+    # (split into two keys, one word from each; its remainder's few
+    # multiply-adds are not counted).
+    def rows_draw(label, words, tags, rows, length, reps=0):
+        b, W = len(rows), -(-length // 32)
+        index = 0 if isinstance(rows, range) else 8 * b
+        return hold_draw(
+            label, lambda: tr.seed_rows_at(words, tags, rows, length, dev),
+            lambda: tr.seed_rows_at_plain(words, tags, rows, length, dev),
+            b * length + index,
+            cipher_ops(len(tags) + b + b * W, len(tags) + 1 + b, b * W), reps)
+
+    def offsets_draw(label, rows, span, reps=0):
+        b = len(rows)
+        index = 0 if isinstance(rows, range) else 8 * b
+        return hold_draw(
+            label, lambda: tr.randint_at(wkey, (TAG_TOFF,), rows, span, dev),
+            lambda: tr.randint_at_plain(wkey, (TAG_TOFF,), rows, span, dev),
+            8 * b + index, cipher_ops(1 + 5 * b, 2 + 3 * b, 2 * b), reps)
+
+    out, shapes = {}, []
+    for r, st in enumerate(ladder.steps):
+        P, l_max = probe.payload_per_block(r), probe.programs(r).l_max
+        z = st.code.z
+        pad = len(np.unique(probe._step_positions[r]["punct"] // z)) * z
+        reps = 20 if r == rung else 0
+        name = f"rung {r} ({st.name}, P={P})"
+        if l_max:
+            d = rows_draw(f"PA seed {name} B={B}", pakey, (), range(B),
+                          P + l_max - 1, reps)
+            if r == rung:
+                out["seed_rows"] = d
+        rows_draw(f"verify seed {name}", wkey, (TAG_VERIFY,), range(1),
+                  P + Vh - 1, reps)
+        if pad:
+            rows_draw(f"puncture pad {name} B={B}", pkey, (), range(B), pad,
+                      reps)
+        d = offsets_draw(f"test offsets {name} B={B}", range(B), P, reps)
+        if r == rung:
+            out["randint"] = d
+        shapes.append(f"r{r}: PA {B}x{P + l_max - 1}, verify "
+                      f"{P + Vh - 1}, pad {B}x{pad}, offsets {B} in [0, {P})")
+    say("threefry: every rung of the production ladder == plain: "
+        + "; ".join(shapes))
+    P = probe.payload_per_block(rung)
+    l_max = probe.programs(rung).l_max
+    z = ladder.steps[rung].code.z
+    # retry_small's failed rows, an index tensor on the card.
+    idx = torch.from_numpy(np.sort(rng.choice(B, 8, replace=False))).to(dev)
+    rows_draw("retry_small 8 index rows, shortening fill", wkey,
+              (TAG_SHORTFILL,), idx, z, reps=20)
+    rows_draw("retry_small 8 index rows, PA length", pakey, (), idx,
+              P + l_max - 1)
+    offsets_draw("retry_small 8 index rows, test offsets", idx, P)
+    # 4 shards' rows from row0 = g * bl: the unsharded draw's rows.
+    bl = B // MESH_SHARDS
+    full_pad = tr.seed_rows_at(pkey, (), range(B), 2 * z, dev)
+    full_off = tr.randint_at(wkey, (TAG_TOFF,), range(B), P, dev)
+    for g in range(MESH_SHARDS):
+        rows = range(g * bl, (g + 1) * bl)
+        rows_draw(f"shard {g} pad rows from row0={g * bl}", pkey, (), rows,
+                  2 * z)
+        offsets_draw(f"shard {g} offsets from row0={g * bl}", rows, P)
+        assert torch.equal(tr.seed_rows_at(pkey, (), rows, 2 * z, dev),
+                           full_pad[g * bl:(g + 1) * bl])
+        assert torch.equal(tr.randint_at(wkey, (TAG_TOFF,), rows, P, dev),
+                           full_off[g * bl:(g + 1) * bl])
+    say(f"threefry: {MESH_SHARDS} shards' rows (row0 = g * {bl}) == "
+        f"plain and == the unsharded draw's rows")
+    # The shortening fill's draw: no ladder of the repo uses it today.
+    rows_draw(f"shortening fill B={B} one z={z} column", wkey,
+              (TAG_SHORTFILL,), range(B), z, reps=20)
+    # One 2^23-bit chunk of the bench's BSC stream (chunk 0 of seed 7).
+    n = 1 << 23
+    key = tr.key_from_data(np.frombuffer(np.uint64(7).tobytes(), np.uint32),
+                           dev)
+    hold_draw("bench chunk fold_in", lambda: tr.fold_in(key, 0),
+              lambda: tr.fold_in_plain(key, 0))
+    kf = tr.fold_in(key, 0)
+    hold_draw("bench chunk split", lambda: tr.split(kf),
+              lambda: tr.split_plain(kf))
+    ka, kb = tr.split(kf)
+    out["hash"] = hold_draw(
+        f"bench chunk bits ({n} words)", lambda: tr.bits32(ka, n),
+        lambda: tr.bits32_plain(ka, n), 16 + 8 * n, cipher_ops(n, 1, n),
+        reps=10)
+    for k in (ka, kb):
+        hold_draw("bench chunk uniform", lambda: tr.uniform(k, n),
+                  lambda: ((tr.bits32_plain(k, n) >> 9) | 0x3F800000)
+                  .to(torch.int32).view(torch.float32) - 1.0)
+    say(f"threefry: one {n}-bit chunk of the bench's BSC stream (fold_in, "
+        f"split, bits, uniform of both keys) == plain")
+    return out
+
+
 def reset_launches():
+    from qtpu_torch import random as tr
     from qtpu_torch.ldpc import cuda_bp
     for name in cuda_bp.launches:
         cuda_bp.launches[name] = 0
         cuda_bp.launch_batches[name].clear()
+    for name in tr.launches:
+        tr.launches[name] = 0
 
 
 def read_launches() -> dict:
+    """The BP kernels' and the threefry entry points' launches."""
     import torch
+    from qtpu_torch import random as tr
     from qtpu_torch.ldpc import cuda_bp
     torch.cuda.synchronize()
-    return dict(cuda_bp.launches)
+    return {**cuda_bp.launches, **tr.launches}
+
+
+def threefry_launches(launches: dict) -> int:
+    from qtpu_torch import random as tr
+    return sum(launches.get(name, 0) for name in tr.launches)
 
 
 def bsc_on_card(dev, total, seed):
@@ -903,7 +1127,8 @@ def mesh_worker(rank: int, port: int) -> int:
 
 def two_process_phase(dev, timeout):
     """Phase 16: two ``--mesh-worker`` processes on this card against the
-    one-process 4-shard program; returns the ranks' summed launches."""
+    one-process 4-shard program; returns the ranks' summed launches (the
+    layered kernel's, the threefry entry points')."""
     import os
     import socket
     from qtpu_torch.parallel import make_mesh
@@ -941,11 +1166,14 @@ def two_process_phase(dev, timeout):
                                    (o["first"] + MESH_SHARDS // 2) * bl]
         assert o["launches"]["bp_layered"] == MESH_SHARDS // 2, o["launches"]
     launches = sum(o["launches"]["bp_layered"] for o in outs)
+    threefry = sum(threefry_launches(o["launches"]) for o in outs)
+    assert all(o["launches"]["threefry_randint"] > 0 for o in outs), outs
     say(f"two processes (gloo over CUDA tensors): ranks 0 and 1 each own "
         f"{MESH_SHARDS // 2} of {MESH_SHARDS} shards on {dev}; psum'd "
         f"ledger {gled} on both == the one-process program's; stats rows "
-        f"equal; {launches} bp_layered launches; {wall:.1f} s for both")
-    return launches
+        f"equal; {launches} bp_layered and {threefry} threefry launches; "
+        f"{wall:.1f} s for both")
+    return launches, threefry
 
 
 def bench_phase(timeout, code, decode):
@@ -976,6 +1204,10 @@ def bench_phase(timeout, code, decode):
     assert x["hbm_copy_gbyte_s_measured"] < 1.05 * HBM_BYTES_PER_S / 1e9, x
     for name, counts in launches.items():
         assert counts["bp_layered"] > 0, f"bench {name}: no bp_layered"
+    for name in ("full_chain", "per_chip"):
+        for entry in ("threefry_seed_rows", "threefry_randint",
+                      "threefry_hash"):
+            assert launches[name][entry] > 0, f"bench {name}: no {entry}"
     bound_ms, bound_by = decode_bound(code, x["decode_blocks"],
                                       x["decode_iterations_sum"])
     assert (bound_ms, bound_by) == (decode.bound_ms, decode.bound_by), \
@@ -1009,7 +1241,7 @@ def baseline_phase(dev) -> dict:
     """Phase 18, first part: ``python -m qtpu_torch.baseline`` config1,
     config2, config3, config5 and efficiency on this card, held to the
     plain decoders, the CPU and a one-process program.  Returns each
-    config's BP kernel launches."""
+    config's BP kernel and threefry launches."""
     import torch
     from qtpu_torch import baseline
     from qtpu_torch.ldpc.calibrate import fer_inputs, measure_fer
@@ -1077,6 +1309,7 @@ def baseline_phase(dev) -> dict:
         devices=[dev] * baseline.CONFIG5_SHARDS))
     assert json.loads(c5["global_ledger"]) == one, (c5, one)
     assert c5["launches"] == {"bp_layered": 0, "bp_flooding": 8}, c5
+    assert c5["threefry_launches"]["threefry_randint"] > 0, c5
     cpu = torch.device("cpu")
     on_cpu = baseline.config5_window(cpu, make_mesh(
         devices=[cpu] * baseline.CONFIG5_SHARDS))
@@ -1090,10 +1323,11 @@ def baseline_phase(dev) -> dict:
         assert r["final_bits"] == r["key_bits"], r
         assert r["qber"] > 0.05 or r["key_bits"] > 0, r
     assert ef["launches"]["bp_layered"] > 0, ef
+    assert ef["threefry_launches"]["threefry_seed_rows"] > 0, ef
     efficiency_ladder_holds(dev)
-    return {name: out["launches"] for name, out in
-            (("config2", c2), ("config3", c3), ("config5", c5),
-             ("efficiency", ef))}
+    return {name: {**out["launches"], **out["threefry_launches"]}
+            for name, out in (("config2", c2), ("config3", c3),
+                              ("config5", c5), ("efficiency", ef))}
 
 
 def efficiency_ladder_holds(dev) -> None:
@@ -1136,10 +1370,16 @@ def torch_equal(got, ref) -> bool:
             and torch.equal(got.converged, ref.converged))
 
 
+# Kernel names of int64 xor and or, which only the plain threefry rounds
+# launch on the window cycle.
+INT64_THREEFRY_OP = r"Bitwise(Xor|Or)Functor<long>"
+
+
 def profiling_phase() -> dict:
     """Phase 18, second part: ``python -m qtpu_torch.profiling programs
-    10`` and ``chain 6`` on this card.  Returns their summed BP kernel
-    launches."""
+    10`` and ``chain 6`` on this card.  Returns their summed BP kernel and
+    threefry launches."""
+    import re
     from qtpu_torch.profiling import PROGRAMS
     pr, _ = module_json("qtpu_torch.profiling", ["programs", "10"], 300)
     for name in PROGRAMS:
@@ -1148,19 +1388,27 @@ def profiling_phase() -> dict:
             (name, pr["device_ms"][name], pr[name])
     assert pr["bp_launches"]["decode_only"] == {"bp_layered": 1.0,
                                                 "bp_flooding": 0.0}, pr
+    assert pr["launches"]["pa_seed_gen"] == 1, pr["launches"]
     ch, _ = module_json("qtpu_torch.profiling", ["chain", "6"], 400)
     tr = ch["trace"]
     # The reference's loop stops once Bob has settled 6 windows; a flush
     # may settle two at once.
     assert ch["windows"] >= 6 and 0 < tr["busy_share"] <= 1, ch
+    plain_ops = [k["name"] for k in tr["top_kernels"]
+                 if re.search(INT64_THREEFRY_OP, k["name"])]
+    assert not plain_ops, f"int64 threefry ops among the top: {plain_ops}"
+    # With the cipher as plain int64 ops a window launched 5,442-6,038
+    # kernels, ~5,400 of them the cipher's.
+    assert tr["launches_per_window"] < 2500, tr["launches_per_window"]
     say(f"profiling chain: {ch['windows']} timed windows, "
         f"{ch['window_ms']} ms a window, busy share {tr['busy_share']} "
         f"({tr['busy_ms_per_window']} busy ms a window in {tr['windows']} "
         f"traced ones; {tr['busy_share_of']}; timed mix {ch['mix']}, traced "
         f"mix {tr['mix']}); {tr['launches_per_window']} kernel launches and "
         f"{tr['kernel_ms_per_window']} kernel ms a window")
-    return {k: pr["bp_launches_total"][k] + ch["bp_launches_total"][k]
-            for k in pr["bp_launches_total"]}
+    return {k: pr[total][k] + ch[total][k]
+            for total in ("bp_launches_total", "threefry_launches_total")
+            for k in pr[total]}
 
 
 def main() -> int:
@@ -1179,6 +1427,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from qtpu_torch import _build
+    from qtpu_torch import random as tr
     from qtpu_torch.chain import ChainConfig
     from qtpu_torch.ldpc import cuda_bp
     from qtpu_torch.ldpc.codes import make_rate_ladder, make_regular_code
@@ -1195,11 +1444,12 @@ def main() -> int:
 
     # 2. build, one nvcc per source, in parallel
     t = time.perf_counter()
-    _build.build(*cuda_bp.KERNELS.values())
+    libraries = (*cuda_bp.KERNELS.values(), tr.LIBRARY)
+    _build.build(*libraries)
     dt = time.perf_counter() - t
-    for name in cuda_bp.KERNELS.values():
+    for name in libraries:
         _build.load(name)
-        say(f"build: {name} (both in {dt:.1f} s) | "
+        say(f"build: {name} (all {len(libraries)} in {dt:.1f} s) | "
             + " | ".join(ptxas_summary(_build.build_log(name))))
 
     # 3. layered kernel vs plain decoder
@@ -1335,13 +1585,29 @@ def main() -> int:
     assert margin < 0.25, f"PA FFT integer margin {margin} >= 0.25"
     say(f"pa: B=128 P=61440 l_max={l_max} integer margin {margin:.4f} < 0.25")
 
+    # 5b. the threefry kernel vs its plain versions
+    draws = threefry_phase(dev, cfg, ladder, probe)
+
     # 6. the production session on this card
     a_src, b_src = bsc_on_card(
         dev, (SESSION_WINDOWS + 4) * cfg.n * cfg.blocks_per_window, 7)
     reset_launches()
-    alice, bob, timed = run_session(cfg, a_src, b_src, dev, SESSION_WINDOWS,
-                                    feed_chunk=1 << 23)
+    plain_calls = collections.Counter()
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            plain_calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+    # No plain (int64) threefry op and no key fill on the card's main path.
+    with mock.patch.object(tr, "_threefry2x32",
+                           counted("threefry2x32", tr._threefry2x32)), \
+            mock.patch.object(tr, "key_from_data",
+                              counted("key_from_data", tr.key_from_data)):
+        alice, bob, timed = run_session(cfg, a_src, b_src, dev,
+                                        SESSION_WINDOWS, feed_chunk=1 << 23)
     prod = read_launches()
+    assert not plain_calls, f"session ran plain threefry ops: {plain_calls}"
     prod_batches = dict(cuda_bp.launch_batches["bp_layered"])
     mets = check_session("session", alice, bob, timed, prod, "bp_layered")
     assert len({m.rate_index for m in mets}) > 1, "no rung switch"
@@ -1350,6 +1616,13 @@ def main() -> int:
     say(f"session layered launches: {prod['bp_layered']} over {len(mets)} "
         f"windows = {per_window:.3f} per window; launches by batch size "
         f"{dict(sorted(prod_batches.items()))}")
+    for name in ("threefry_seed_rows", "threefry_randint"):
+        assert prod[name] > 0, f"session never launched {name}"
+    tf_per_window = threefry_launches(prod) / len(mets)
+    say(f"session threefry launches: {threefry_launches(prod)} over "
+        f"{len(mets)} windows = {tf_per_window:.3f} per window ("
+        + ", ".join(f"{k} {prod[k] / len(mets):.3f}" for k in tr.launches)
+        + "); no plain threefry op, no key fill")
     del alice, bob, a_src, b_src
 
     # 7. the min-sum session (flooding decoder) on this card
@@ -1517,7 +1790,7 @@ def main() -> int:
     del alice, bob, a_src, b_src
 
     # 16. two processes, each owning half of the mesh
-    two_launches = two_process_phase(dev, timeout=300)
+    two_launches, two_threefry = two_process_phase(dev, timeout=300)
 
     # 17. the bench, through the CLI
     bench_out, bench_launches, bench_s, b_bound = bench_phase(
@@ -1535,6 +1808,15 @@ def main() -> int:
     def path_launches(kernel):
         return {f"launches_{name}": counts[kernel]
                 for name, counts in measured.items()}
+
+    tf_paths = {
+        "session": prod, "minsum_session": ms_launches,
+        "chain": chain_launches, "stream_pa_session": st_launches,
+        "cli_demo": demo_launches, "cli_fer": fer_launches,
+        "mesh_session": mesh_launches,
+        "mesh_stream_pa_session": mst_launches,
+        **{f"bench_{k}": v for k, v in bench_launches.items()}, **measured}
+    seed, offsets, chunk = draws["seed_rows"], draws["randint"], draws["hash"]
 
     say(json.dumps({"kernels": [{
         "name": "bp_layered", "route": "cuda",
@@ -1583,7 +1865,27 @@ def main() -> int:
         "max_active_clusters": f_plan.max_clusters,
         "decode_added_mb": round(f_added / 1e6, 3),
         **{f"{f}_{k}": round(getattr(r, f), 4) for k, r in f_rows.items()
-           for f in ("ms", "device_ms", "bound_ms")}}]}))
+           for f in ("ms", "device_ms", "bound_ms")}}, {
+        "name": "threefry", "route": "cuda",
+        "source": "qtpu_torch/csrc/threefry.cu",
+        "replaces": "qtpu/window_programs.py:280-308",
+        "launches": threefry_launches(prod),
+        "launches_by_entry": {k: prod[k] for k in tr.launches},
+        **{f"launches_{name}": threefry_launches(counts)
+           for name, counts in tf_paths.items()},
+        "launches_two_processes": two_threefry,
+        "launches_per_window": round(tf_per_window, 4),
+        "max_abs_err": max(d.err for d in draws.values()),
+        "ms": round(seed.ms, 4), "device_ms": round(seed.device_ms, 4),
+        "plain_ms": round(seed.plain_ms, 2),
+        "bound_ms": round(seed.bound_ms, 5), "bound_by": seed.bound_by,
+        "library_ms": None,
+        "timed": "seed_rows: the PA seed at the production rung",
+        **{f"{f}_{entry}": float(f"{getattr(d, f):.4g}")
+           for entry, d in (("randint", offsets), ("hash", chunk))
+           for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        "bound_by_randint": offsets.bound_by,
+        "bound_by_hash": chunk.bound_by}]}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

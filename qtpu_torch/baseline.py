@@ -13,8 +13,9 @@ Counterparts of ``benchmarks/config1_smoke.py``, ``config2_batch.py``,
 
 Each config is a function that returns the reference's dict, with the
 reference's keys; ``main`` prints it as one JSON line and adds
-``"device"`` (the card's name and power limit from nvidia-smi, or "cpu")
-and ``"launches"`` (each BP kernel's launches over the run).  Every input is
+``"device"`` (the card's name and power limit from nvidia-smi, or "cpu"),
+``"launches"`` (each BP kernel's launches over the run) and
+``"threefry_launches"`` (each threefry entry point's).  Every input is
 drawn with numpy from the reference script's own seeds, so both packages
 see the same bits.
 
@@ -60,6 +61,7 @@ import torch
 
 from qtpu_torch.devices import (DEFAULT_DEVICE, device_name, entry_device,
                                 resolve_device)
+from qtpu_torch import random as tr
 from qtpu_torch.ldpc import cuda_bp
 
 __all__ = ["config1", "config2", "config2_inputs", "config3", "config5",
@@ -70,6 +72,12 @@ CONFIG2_QBERS = (0.01, 0.02, 0.03, 0.04, 0.05)
 CONFIG2_ITERS = 60
 CONFIG5_SHARDS = 8              # 4 in each of the two processes
 EFFICIENCY_QBERS = (0.01, 0.02, 0.03, 0.05, 0.07)
+
+
+def _threefry_since(before: dict) -> dict:
+    """Each threefry entry point's launches since the counts were
+    ``before``."""
+    return {k: v - before[k] for k, v in tr.launches.items()}
 
 
 def _launches_since(before: dict) -> dict:
@@ -232,19 +240,21 @@ def config5_worker(rank: int, port: int, device=DEFAULT_DEVICE) -> int:
     """``--config5-worker RANK PORT``: one of config 5's two processes.
     Joins the other over gloo at 127.0.0.1:PORT, owns shards 4·RANK ..
     4·RANK + 3 of 8 on ``device`` and prints the reference worker's
-    ``MULTIHOST_OK`` line, then its BP kernel launches."""
+    ``MULTIHOST_OK`` line, then its BP kernel and threefry launches."""
     from qtpu_torch.parallel import init_distributed, make_mesh
     dev = entry_device("qtpu_torch.baseline --config5-worker", device)
     init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
     try:
         mesh = make_mesh(devices=[dev] * (CONFIG5_SHARDS // 2))
-        before = dict(cuda_bp.launches)
+        before, tf_before = dict(cuda_bp.launches), dict(tr.launches)
         gl = config5_window(dev, mesh)
         launches = _launches_since(before)
+        threefry = _threefry_since(tf_before)
     finally:
         torch.distributed.destroy_process_group()
     print(f"MULTIHOST_OK proc={rank} ledger={gl}", flush=True)
     print("launches: " + json.dumps(launches), flush=True)
+    print("threefry launches: " + json.dumps(threefry), flush=True)
     return 0
 
 
@@ -260,7 +270,8 @@ def config5(device=DEFAULT_DEVICE, port: int | None = None,
     127.0.0.1:``port`` (a free port by default); ``ok`` when both exit 0
     with their ledger line, ``ledgers_agree`` when the two psum'd ledgers
     are equal, ``global_ledger`` the first one (as the worker printed it),
-    ``launches`` the BP kernel launches of both.  A worker that fails has
+    ``launches`` the BP kernel launches of both and ``threefry_launches``
+    their threefry launches.  A worker that fails has
     its output written to stderr."""
     dev = resolve_device(device)
     port = _free_port() if port is None else port
@@ -286,15 +297,18 @@ def config5(device=DEFAULT_DEVICE, port: int | None = None,
             print(f"config5 worker {rank}:\n{o[-3000:]}", file=sys.stderr)
     ledgers = [ln.split("ledger=")[1] for o in outs for ln in o.splitlines()
                if "MULTIHOST_OK" in ln]
-    launches = {k: 0 for k in cuda_bp.launches}
+    counts = {"launches: ": {k: 0 for k in cuda_bp.launches},
+              "threefry launches: ": {k: 0 for k in tr.launches}}
     for o in outs:
         for ln in o.splitlines():
-            if ln.startswith("launches: "):
-                for k, v in json.loads(ln[len("launches: "):]).items():
-                    launches[k] += v
+            for head, total in counts.items():
+                if ln.startswith(head):
+                    for k, v in json.loads(ln[len(head):]).items():
+                        total[k] += v
     return {"config": 5, "ok": ok, "ledgers_agree": len(set(ledgers)) == 1,
             "global_ledger": ledgers[0] if ledgers else None,
-            "launches": launches}
+            "launches": counts["launches: "],
+            "threefry_launches": counts["threefry launches: "]}
 
 
 def h2(p: float) -> float:
@@ -377,7 +391,7 @@ def main(argv=None) -> int:
         p.error("name a config")
     if args.sizes and args.config != "efficiency":
         p.error(f"{args.config} takes no sizes")
-    before = dict(cuda_bp.launches)
+    before, tf_before = dict(cuda_bp.launches), dict(tr.launches)
     if args.config == "config1":
         out, dev = config1(), torch.device("cpu")
     else:
@@ -394,6 +408,7 @@ def main(argv=None) -> int:
             sizes = [int(s) for s in args.sizes] + [4096, 64][len(args.sizes):]
             out = efficiency(dev, n=sizes[0], bpw=sizes[1])
     out.setdefault("launches", _launches_since(before))
+    out.setdefault("threefry_launches", _threefry_since(tf_before))
     out["device"] = device_name(dev)
     print(json.dumps(out), flush=True)
     return 0 if out.get("ok", True) else 1

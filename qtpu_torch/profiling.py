@@ -127,12 +127,12 @@ class _Trace:
 
     def top(self, k: int) -> list:
         """The ``k`` kernel names with the most summed time: name (cut to
-        120 characters), ms, launches."""
+        200 characters), ms, launches."""
         ms, count = collections.Counter(), collections.Counter()
         for name, s, e in self.kernels:
             ms[name] += (e - s) / 1e3
             count[name] += 1
-        return [{"name": name[:120], "ms": round(t, 4),
+        return [{"name": name[:200], "ms": round(t, 4),
                  "launches": count[name]} for name, t in ms.most_common(k)]
 
 
@@ -271,7 +271,6 @@ def programs(device=DEFAULT_DEVICE, reps: int = 20, cfg=None) -> dict:
         acc = x.to(torch.float32) @ t.unfold(0, P, 1).to(torch.float32).T
         return (acc.to(torch.int32) & 1).to(torch.uint8)
 
-    rows = torch.arange(B, dtype=torch.int64, device=dev)
     calls = {
         "alice_program": lambda: prog_a.alice(arena_a, header_a),
         "bob_program": lambda: prog_b.bob(*bob_args),
@@ -280,8 +279,8 @@ def programs(device=DEFAULT_DEVICE, reps: int = 20, cfg=None) -> dict:
         "retry_small": lambda: prog_b.retry_small(*retry_args),
         "decode_only": lambda: dec(llr, syn_full),
         "verify_hash": verify_hash,
-        "pa_seed_gen": lambda: tr.seed_rows(tr.key_from_data(pakey, dev),
-                                            rows, P + prog_a.l_max - 1),
+        "pa_seed_gen": lambda: tr.seed_rows_at(pakey, (), range(B),
+                                               P + prog_a.l_max - 1, dev),
     }
     res = {name: _measure(dev, calls[name], reps) for name in PROGRAMS}
     host["end"] = _host_now()
@@ -504,8 +503,10 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; fails when CUDA is "
                         "missing)")
     args = p.parse_args(argv)
+    from qtpu_torch import random as tr
     dev = entry_device("qtpu_torch.profiling", args.device)
     before = dict(cuda_bp.launches)
+    tf_before = dict(tr.launches)
     if args.what == "programs":
         out = programs(dev, reps=args.count or 20)
         print(f"rung={out['rung']} s={out['short_bits']} k_pb={out['k_pb']} "
@@ -522,6 +523,8 @@ def main(argv=None) -> int:
                   f"ms/call")
     out["bp_launches_total"] = {k: v - before[k]
                              for k, v in cuda_bp.launches.items()}
+    out["threefry_launches_total"] = {k: v - tf_before[k]
+                                      for k, v in tr.launches.items()}
     out["device"] = device_name(dev)
     print(json.dumps(out), flush=True)
     return 0

@@ -5,8 +5,9 @@ constant B*P bits of the device stream; the programs frame, encode, pin
 disclosures, assemble LLRs, decode, verify and privacy-amplify on the
 stream's device, with the same protocol randomness as the
 reference (threefry2x32 from ``qtpu_torch.random``, folded by GLOBAL block
-index), so a window's syndromes, hashes, disclosures, decoded payload,
-stats and PA rows equal the reference's bit for bit.
+index; on a card each draw is one launch of its kernel, with the key words
+read from the host header), so a window's syndromes, hashes, disclosures,
+decoded payload, stats and PA rows equal the reference's bit for bit.
 
 Programs per ladder rung (the adaptive disclosure sizes s and k are header
 values):
@@ -170,12 +171,6 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
                  torch.arange(P, dtype=torch.int64, device=d))
              for d in devices}
 
-    def _rows(b, row0, dev):
-        return row0 + torch.arange(b, dtype=torch.int64, device=dev)
-
-    def _wkey(header, dev):
-        return tr.key_from_data(header[2:4], dev)
-
     def _frame(arena, header, b, row0, dev):
         """(b, P) payload slab on ``dev``: a copy of the stream at the
         cursor (the arena is updated in place by later pushes and
@@ -190,8 +185,7 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         a, boff_s = int(header[7]), int(header[9])
         i = torch.arange(Sm, dtype=torch.int64, device=dev)
         pos_s = (a * i % P + boff_s) % P
-        keys = tr.fold_in(tr.fold_in(_wkey(header, dev), TAG_TOFF), rows)
-        boff_t = tr.randint(keys, P)
+        boff_t = tr.randint_at(header[2:4], (TAG_TOFF,), rows, P, dev)
         j = torch.arange(Sm, Sm + Kq, dtype=torch.int64, device=dev)
         pos_t = ((a * j % P)[None, :] + boff_t[:, None]) % P
         return pos_s, pos_t, boff_t
@@ -211,8 +205,8 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
     def _vmatrix(header, dev):
         """(Vh, P) float32 Toeplitz verification matrix from one window-
         level seed: row j is t[j : j + P]."""
-        t = tr.seed_rows(tr.fold_in(_wkey(header, dev), TAG_VERIFY),
-                         _rows(1, 0, dev), P + Vh - 1)[0]
+        t = tr.seed_rows_at(header[2:4], (TAG_VERIFY,), range(1),
+                            P + Vh - 1, dev)[0]
         return t.unfold(0, P, 1).to(torch.float32)
 
     def _verify_hash(t_mat, x_bits):
@@ -222,8 +216,8 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         return (acc.to(torch.int32) & 1).to(torch.uint8)
 
     def _shortfill(header, rows, dev):
-        return tr.seed_rows(tr.fold_in(_wkey(header, dev), TAG_SHORTFILL),
-                            rows, int(short_cols.size) * z)
+        return tr.seed_rows_at(header[2:4], (TAG_SHORTFILL,), rows,
+                               int(short_cols.size) * z, dev)
 
     def _build_codeword(payload, header, rows, punct_bits, dev):
         b = payload.shape[0]
@@ -254,11 +248,11 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         return llr.reshape(b, n).contiguous()
 
     def alice_program(arena, header):
-        rows = _rows(B, 0, device)
+        rows = range(B)
         payload = _frame(arena, header, B, 0, device)
         if punct_cols.size:
-            pk = tr.key_from_data(header[4:6], device)
-            punct = tr.seed_rows(pk, rows, int(punct_cols.size) * z)
+            punct = tr.seed_rows_at(header[4:6], (), rows,
+                                    int(punct_cols.size) * z, device)
         else:
             punct = None
         x = _build_codeword(payload, header, rows, punct, device)
@@ -288,7 +282,7 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         """Bob's decode of the b = len(test_alice) blocks from global block
         ``row0`` on, on ``dev``."""
         b = test_alice.shape[0]
-        rows = _rows(b, row0, dev)
+        rows = range(row0, row0 + b)    # global block indices
         rx_orig = _frame(arena, header, b, row0, dev)
         pos_s, pos_t, boff_t = _disclosure_positions(header, rows, dev)
         s, k = int(header[1]), int(header[6])
@@ -375,7 +369,7 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         pin2[:, pos] = True
         pin2 = torch.where(failed_b, pin2, pinmask)
         hat2, st2 = _decode_core(header, rx_orig, rx2, pin2, syndromes,
-                                 exp_hashes, qmag, _rows(B, 0, device),
+                                 exp_hashes, qmag, range(B),
                                  device)
         failed_b = failed_b[:, 0]
         ok = stats[:, 0].to(torch.bool) | (failed_b & st2[:, 0].to(torch.bool))
@@ -421,8 +415,7 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         b = payload.shape[0]
         if l_max == 0:   # rung can never yield key
             return torch.zeros((b, 0), dtype=torch.uint8, device=device)
-        key = tr.key_from_data(pakey_data, device)
-        t = tr.seed_rows(key, _rows(b, 0, device), P + l_max - 1)
+        t = tr.seed_rows_at(pakey_data, (), range(b), P + l_max - 1, device)
         return _toeplitz_hash(t, payload, l_max)
 
     def pack_rows(bits):

@@ -257,7 +257,10 @@ def test_cli_bench_cpu_prints_one_reference_line(monkeypatch, capsys,
         assert now["torch_cpu_op_us"] > 0 and now["python_loop_ms"] > 0
     assert json.loads((tmp_path / "bench_last_run.json").read_text()) == out
     launches = json.loads(lines[-2].split("bench launches: ", 1)[1])
-    assert launches == {"decode": {"bp_layered": 0, "bp_flooding": 0}}
+    assert launches == {"decode": {"bp_layered": 0, "bp_flooding": 0,
+                                   "threefry_seed_rows": 0,
+                                   "threefry_randint": 0,
+                                   "threefry_hash": 0}}
 
 
 def test_bench_needs_cuda_unless_told_cpu(monkeypatch):

@@ -1,4 +1,5 @@
-"""qtpu_torch on the card: both BP kernels, sessions and sifting on CUDA.
+"""qtpu_torch on the card: both BP kernels, the threefry kernel, sessions
+and sifting on CUDA.
 
 Marked ``cuda``; every test skips without a CUDA device.  On a machine with
 a card (which has no JAX, so the JAX import of tests/conftest.py must be
@@ -8,8 +9,10 @@ switched off):
 
 Tolerance: exact — each kernel against its plain PyTorch decoder (bits,
 iterations, converged; the layered kernel at every native3 rung of
-n = 65536, hence at every cluster size the production ladder uses), a
-session on the card against the same session on
+n = 65536, hence at every cluster size the production ladder uses), the
+threefry kernel's three entry points against the plain PyTorch versions
+of ``qtpu_torch.random`` (seed rows at the PA seed's, the verify seed's and
+the pad's lengths, offsets at the ladder's spans), a session on the card against the same session on
 the CPU (final keys, ledgers, per-window metrics), the bench's BSC stream
 on the card against the CPU and its per-chip replay on the card, and the
 sift functions on the card against the CPU on the same events (residuals
@@ -362,6 +365,95 @@ def test_bench_stream_on_card_equals_cpu(dev):
     want = device_bsc_stream(5000, 0.03, 7, chunk_bits=2048, device="cpu")
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+# The threefry kernel's shapes: the production ladder's PA seed rows
+# (P + l_max - 1 bits, 32,637-57,213 + P - 1), the verify seed (P + 63
+# bits), the puncture pad and shortening fill (2,048 bits), ragged lengths.
+THREEFRY_LENGTHS = [1, 31, 33, 2048, 63551, 110460, 94076]
+
+
+@pytest.mark.parametrize("length", THREEFRY_LENGTHS)
+@pytest.mark.parametrize("tags", [(), (3,), (4, 5)],
+                         ids=["0tags", "1tag", "2tags"])
+def test_threefry_seed_rows_on_card_matches_plain(dev, tags, length):
+    from qtpu_torch import random as tr
+    words = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    idx = torch.tensor([7, 0, 127, 2**32 - 1, 3], dtype=torch.int64,
+                       device=dev)
+    for rows in (range(128), range(96, 128), idx):
+        before = tr.launches["threefry_seed_rows"]
+        got = tr.seed_rows_at(words, tags, rows, length, dev)
+        torch.cuda.synchronize()
+        assert tr.launches["threefry_seed_rows"] == before + 1
+        assert got.is_cuda and torch.equal(
+            got, tr.seed_rows_at_plain(words, tags, rows, length, dev))
+
+
+@pytest.mark.parametrize("span", [1, 3, 1000, 61440, 63488, 65536,
+                                  2**31 + 5, 2**32 - 1])
+def test_threefry_randint_on_card_matches_plain(dev, span):
+    from qtpu_torch import random as tr
+    words = np.array([0xDEADBEEF, 0x0BADF00D], np.uint32)
+    idx = torch.arange(0, 1024, 7, dtype=torch.int64, device=dev)
+    for rows in (range(128), range(96, 128), idx):
+        before = tr.launches["threefry_randint"]
+        got = tr.randint_at(words, (4,), rows, span, dev)
+        torch.cuda.synchronize()
+        assert tr.launches["threefry_randint"] == before + 1
+        assert torch.equal(got, tr.randint_at_plain(words, (4,), rows, span,
+                                                    dev))
+
+
+def test_threefry_hash_on_card_matches_plain(dev):
+    """fold_in (scalar and tensor data), split, bits32 and uniform through
+    the generic entry point, one launch each."""
+    from qtpu_torch import random as tr
+    key = tr.key_from_data(np.array([7, 0], np.uint32), dev)
+    keys = tr.fold_in_plain(key, torch.arange(5, dtype=torch.int64,
+                                              device=dev))
+    data = torch.tensor([0, 5, 2**31 + 7, 2**32 - 1, -1], dtype=torch.int64,
+                        device=dev)
+    cases = [
+        (lambda: tr.fold_in(key, 12345), tr.fold_in_plain(key, 12345)),
+        (lambda: tr.fold_in(keys, 2**32 - 1),
+         tr.fold_in_plain(keys, 2**32 - 1)),
+        (lambda: tr.fold_in(key, data), tr.fold_in_plain(key, data)),
+        (lambda: tr.split(keys, 3), tr.split_plain(keys, 3)),
+        (lambda: tr.bits32(keys, 1000), tr.bits32_plain(keys, 1000)),
+        (lambda: tr.bits32(key, 1 << 20), tr.bits32_plain(key, 1 << 20)),
+    ]
+    for fn, want in cases:
+        before = tr.launches["threefry_hash"]
+        got = fn()
+        torch.cuda.synchronize()
+        assert tr.launches["threefry_hash"] == before + 1
+        assert got.shape == want.shape and torch.equal(got, want)
+    u = tr.uniform(keys, 4096)
+    assert u.dtype == torch.float32 and torch.equal(
+        u, ((tr.bits32_plain(keys, 4096) >> 9) | 0x3F800000)
+        .to(torch.int32).view(torch.float32) - 1.0)
+
+
+def test_threefry_rejects_bad_inputs_on_card(dev):
+    from qtpu_torch import random as tr
+    before = dict(tr.launches)
+    words = np.array([1, 2], np.uint32)
+    bad_rows = [torch.zeros(4, dtype=torch.int32, device=dev),
+                torch.zeros(8, dtype=torch.int64, device=dev)[::2],
+                torch.zeros((2, 2), dtype=torch.int64, device=dev)]
+    for rows in bad_rows:
+        with pytest.raises(ValueError):
+            tr.seed_rows_at(words, (), rows, 64, dev)
+        with pytest.raises(ValueError):
+            tr.randint_at(words, (), rows, 64, dev)
+    key = torch.zeros((2, 4), dtype=torch.int64, device=dev).T
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.bits32(key, 8)
+    with pytest.raises(ValueError, match="int64"):
+        tr.fold_in(torch.zeros(2, dtype=torch.int64, device=dev),
+                   torch.zeros(3, dtype=torch.int32, device=dev))
+    assert tr.launches == before
 
 
 def test_bench_replay_on_card(dev):

@@ -16,9 +16,13 @@ import torch
 from qtpu_torch import random as tr
 
 
-def _key(seed):
+def _words(seed):
     data = np.random.default_rng(seed).integers(0, 2**32, 2, dtype=np.uint64)
-    data = data.astype(np.uint32)
+    return data.astype(np.uint32)
+
+
+def _key(seed):
+    data = _words(seed)
     return jax.random.wrap_key_data(jnp.asarray(data)), tr.key_from_data(
         data, "cpu")
 
@@ -67,18 +71,20 @@ def test_seed_rows(length):
         lambda k: jax.random.bits(k, (W,), jnp.uint32))(keys))
     want = ((words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1)
     want = want.astype(np.uint8).reshape(len(rows), W * 32)[:, :length]
-    got = tr.seed_rows(tk, torch.from_numpy(rows.astype(np.int64)), length)
+    got = tr.seed_rows_at(_words(length), (),
+                          torch.from_numpy(rows.astype(np.int64)), length,
+                          "cpu")
     np.testing.assert_array_equal(want, got.numpy())
 
 
 @pytest.mark.parametrize("span", [61440, 63488, 65536, 1000, 3])
 def test_randint(span):
-    jk, tk = _key(span)
+    jk, _ = _key(span)
     idx = np.arange(64, dtype=np.uint32)
     keys = jax.vmap(lambda i: jax.random.fold_in(jk, i))(jnp.asarray(idx))
     want = jax.vmap(lambda k: jax.random.randint(
         k, (), 0, span, dtype=jnp.uint32))(keys)
-    got = tr.randint(tr.fold_in(tk, torch.from_numpy(idx.astype(np.int64))),
-                     span)
+    got = tr.randint_at(_words(span), (),
+                        torch.from_numpy(idx.astype(np.int64)), span, "cpu")
     np.testing.assert_array_equal(np.asarray(want).astype(np.int64),
                                   got.numpy())
