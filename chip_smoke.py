@@ -6,9 +6,9 @@
 Phases (each prints one flushed line; any failure ends the run non-zero):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both BP kernels and the threefry kernel from qtpu_torch/csrc/,
-   one nvcc each, in parallel, with each kernel entry's registers and
-   spills (-Xptxas -v);
+2. build: both BP kernels, the threefry kernel, the syndrome encoder and
+   the pin/LLR kernel from qtpu_torch/csrc/, one nvcc each, in parallel,
+   with each kernel entry's registers and spills (-Xptxas -v);
 3. layered kernel vs its plain PyTorch decoder, bits / iterations /
    converged equal, at a production native3 rung (n = 65536, B = 128 and
    B = 8), at every native3 rung of n = 65536 at B = 8 (the cluster size
@@ -46,19 +46,33 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    bound (bytes at 3.35 TB/s, or the cipher's shifts and xors on the
    64-lane INT32 pipe with its adds free to issue on the FMA pipe), and no
    library call (no PyTorch call computes threefry2x32);
+5c. window kernels: ``qtpu_torch/csrc/qc_encode.cu`` (the syndrome
+   encoder reading the codeword's payload, fill and pad parts) and both
+   entry points of ``qtpu_torch/csrc/pin_llr.cu`` (Bob's pins, mismatch
+   count and LLR; the retries' LLR) == their plain PyTorch versions bit
+   for bit (LLRs by their float32 bit patterns) at every production rung
+   (B = 128, the full-B retry), at 4 shards' rows (b = 32, == the
+   unsharded call's rows), at retry_small's 1 and 8 rows and at every rung
+   of the n = 4096 mixed ladder (B = 1024); at the rung a 3% prior selects
+   each one's call time, the device time of a CUDA-graph replay, the plain
+   version's time and the bound (bytes at 3.35 TB/s, or its 32-bit
+   operations at the SM's issue rate), and no library call;
 6. session: production_config(), Alice and Bob on this card over a direct
    link, fed a BSC(3%) stream generated on the card, for 20 windows —
    identical non-empty keys, equal ledgers, FER <= 0.05, a rung switch, a
    retry round, and the layered kernel launched by the session (its
    launches per window and their batch sizes printed); the threefry
    kernel's seed-row and offset entry points launched (per window
-   printed), and no plain int64 threefry op and no key fill run;
+   printed), and no plain int64 threefry op and no key fill run; the
+   encoder, pin_llr and the retries' llr launched (per window printed),
+   and no plain encoder or pin/LLR assembly run;
 7. min-sum session: n = 4096 mixed ladder, flooding decoder, B = 1024, the
-   same checks, and only the flooding kernel launched;
+   same checks, only the flooding kernel launched, and the encoder and
+   pin_llr launched (per window printed);
 8. chain: the events -> key entry point (simulated detector events at 10^7
    pairs/s, pfind, batched sifting, splice, min-sum EC) on this card —
    pfind within 50 units of the true offset, identical non-empty keys,
-   equal ledgers, the flooding kernel launched;
+   equal ledgers, the flooding kernel, the encoder and pin_llr launched;
 9. cross-device parity: small layered and min-sum configs run on the card
    and on the CPU with identical input give identical keys, ledgers and
    per-window metrics;
@@ -100,7 +114,7 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     card, joined by ``init_distributed(backend="gloo")``, each owning 2 of
     4 shards of Bob's program at phase 3's rung (B = 128): both psum'd
     ledgers equal each other and the one-process 4-shard program's on the
-    same window;
+    same window, and each rank launched pin_llr once a shard;
 17. the bench: ``python -m qtpu_torch.cli bench`` as a subprocess on this
     card (the decoder alone, the copy bandwidth, both parties on the card,
     Bob's replayed session three times each, the events -> key chain, the
@@ -109,8 +123,10 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     are clean, the two-party FER <= 0.05, every decode-alone block
     converged, the measured copy bandwidth is below 1.05 x 3,350 GB/s, and
     its ``bench launches`` line shows the layered kernel launched by every
-    measurement and the threefry kernel's three entry points by both
-    parties' and Bob's sessions (the BSC stream, the window programs); the bound of its decode-alone call, from the iterations
+    measurement and the threefry kernel's three entry points and pin_llr
+    by both parties' and Bob's sessions (the BSC stream, the window
+    programs), the encoder by both parties'; the bound of its decode-alone
+    call, from the iterations
     the bench's own call reported, equals phase 3's on the same inputs and
     is printed with the share of bound.  The line is printed;
 18. the measuring scripts as subprocesses on this card, each JSON line
@@ -129,10 +145,12 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     retry's 8 rows with n/10 bits pinned); ``python -m
     qtpu_torch.profiling programs 10`` (every program
     launches kernels, device ms <= 1.05 x call ms, decode_only launches
-    the layered kernel once a call, pa_seed_gen one threefry kernel a call)
-    and ``chain 6`` (>= 6 timed windows, a busy share in (0, 1], launches
-    per window printed, no int64 elementwise kernel among the top
-    kernels).  The kernels line gains each kernel's launches on these
+    the layered kernel once a call, pa_seed_gen one threefry kernel a call,
+    alice, bob and retry_small <= 40 launches a call) and ``chain 6``
+    (>= 6 timed windows, a busy share in (0, 1], fewer launches a window
+    than PR 9's tree's 648.3, printed beside it, no int64 elementwise
+    kernel and no ``roll`` launched once a window or more among the top
+    kernels, which are printed).  The kernels line gains each kernel's launches on these
     paths.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -142,6 +160,7 @@ card's name and power limit, and the one before that the kernels' JSON.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -243,9 +262,14 @@ def ptxas_summary(log: str) -> list:
         if m:
             t = re.search(r"ILi(\d+)ELb([01])E(?:Li(\d+)ELi(\d+)E)?",
                           m.group(1))
-            plain = re.search(r"\d([a-z][a-z_]*_kernel)E", m.group(1))
+            plain = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILb([01])EE)?E",
+                              m.group(1))
             layout = "cluster" if t and t.group(2) == "1" else "one CTA"
-            name = ((plain.group(1) if plain else m.group(1)) if not t else
+            if plain:
+                plain = plain.group(1) + ("" if plain.group(2) is None else
+                                          ("<false>", "<true>")[
+                                              int(plain.group(2))])
+            name = ((plain or m.group(1)) if not t else
                     f"<dmax {t.group(1)}, {layout}>" if t.group(3) is None
                     else f"<dmax {t.group(1)}, {layout}, {t.group(3)} "
                          f"threads x {t.group(4)} per SM>")
@@ -460,10 +484,11 @@ class Draw(NamedTuple):
     bound_by: str
 
 
-def hold_draw(label, fn, plain, nbytes=0, ops=(0, 0), reps=0):
-    """The kernel's draw ``fn()`` == its plain version ``plain()`` on the
-    card, bit for bit; with ``reps``, also its times and bound (a Draw,
-    printed), else None."""
+def hold_kernel(kind, label, fn, plain, bound=(0.0, "bytes"), reps=0):
+    """The kernel's outputs ``fn()`` (a tensor or a tuple of them) ==
+    its plain version's ``plain()`` on the card, bit for bit (float32 by
+    bit pattern); with ``reps``, also its times beside ``bound`` = (ms,
+    "bytes" or "operations") (a Draw, printed), else None."""
     import torch
     got = fn()
     torch.cuda.synchronize()
@@ -471,24 +496,47 @@ def hold_draw(label, fn, plain, nbytes=0, ops=(0, 0), reps=0):
     want = plain()
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t)
-    assert got.dtype == want.dtype and got.shape == want.shape, \
-        f"threefry {label}: {got.dtype} {tuple(got.shape)} != plain " \
-        f"{want.dtype} {tuple(want.shape)}"
-    def ints(t):   # float32 draws compare as their bit patterns
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+
+    def ints(t):   # float32 outputs compare as their bit patterns
         return (t.view(torch.int32) if t.is_floating_point()
                 else t).to(torch.int64)
-    err = int((ints(got) - ints(want)).abs().max()) if got.numel() else 0
-    assert err == 0, f"threefry {label}: kernel != plain (max err {err})"
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape, \
+            f"{kind} {label}: {g.dtype} {tuple(g.shape)} != plain " \
+            f"{w.dtype} {tuple(w.shape)}"
+        if g.numel():
+            err = max(err, int((ints(g) - ints(w)).abs().max()))
+    assert err == 0, f"{kind} {label}: kernel != plain (max err {err})"
     if not reps:
         return None
     ms = time_cuda(fn, reps)
     dev_ms = graph_ms(fn, reps)
-    bound_ms, bound_by = threefry_bound(nbytes, ops)
-    say(f"threefry {label}: {tuple(got.shape)} {got.dtype} == plain; "
+    bound_ms, bound_by = bound
+    shapes = ", ".join(f"{tuple(g.shape)} {g.dtype}" for g in got)
+    say(f"{kind} {label}: {shapes} == plain; "
         f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.2f} "
         f"bound_ms={bound_ms:.5f} ({bound_by}) share_of_bound "
         f"{bound_ms / dev_ms:.4f} (device) library_ms=null")
     return Draw(err, ms, dev_ms, plain_ms, bound_ms, bound_by)
+
+
+def hold_draw(label, fn, plain, nbytes=0, ops=(0, 0), reps=0):
+    """``hold_kernel`` of a threefry draw, bound by ``threefry_bound``."""
+    return hold_kernel("threefry", label, fn, plain,
+                       threefry_bound(nbytes, ops), reps)
+
+
+def prior_rung(cfg, dev) -> int:
+    """The rung Bob's 3% prior selects (as ``qtpu_torch.profiling
+    programs``)."""
+    from qtpu_torch.link import make_direct_pair
+    from qtpu_torch.pipeline import BobSession
+    prior = BobSession(cfg, 0x5E55, make_direct_pair()[1], device=dev)
+    prior.qest.update_prior(QBER * 1e6, 1e6)
+    return prior._choose()[1]
 
 
 def threefry_phase(dev, cfg, ladder, probe) -> dict:
@@ -501,13 +549,9 @@ def threefry_phase(dev, cfg, ladder, probe) -> dict:
     import numpy as np
     import torch
     from qtpu_torch import random as tr
-    from qtpu_torch.link import make_direct_pair
-    from qtpu_torch.pipeline import BobSession
     from qtpu_torch.window_programs import (TAG_SHORTFILL, TAG_TOFF,
                                             TAG_VERIFY)
-    prior = BobSession(cfg, 0x5E55, make_direct_pair()[1], device=dev)
-    prior.qest.update_prior(QBER * 1e6, 1e6)
-    rung = prior._choose()[1]
+    rung = prior_rung(cfg, dev)
     rng = np.random.default_rng(55)
     wkey, pkey, pakey = (rng.integers(0, 2**32, 2, dtype=np.uint64)
                          .astype(np.uint32) for _ in range(3))
@@ -610,23 +654,185 @@ def threefry_phase(dev, cfg, ladder, probe) -> dict:
     return out
 
 
-def reset_launches():
+def window_layout(probe, r):
+    """(code, ColumnLayout) of rung ``r`` of ``probe``'s ladder, as its
+    window programs build them (payload | shortened | punctured)."""
+    import numpy as np
+    from qtpu_torch.ldpc.encode import ColumnLayout
+    code = probe.ladder.steps[r].code
+    pos = probe._step_positions[r]
+    cols = [np.unique(np.asarray(pos[k]) // code.z) if len(pos[k]) else []
+            for k in ("payload", "short", "punct")]
+    return code, ColumnLayout(code.nb, code.z, *cols)
+
+
+def window_bound(nbytes, ops):
+    """The least time the card could take for ``nbytes`` of traffic and
+    ``ops`` 32-bit integer operations within an SM's issue of 128 lanes a
+    clock: (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / ISSUE_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
+    """Phase 5c: the syndrome encoder (``qtpu_torch/csrc/qc_encode.cu``)
+    and both pin/LLR entry points (``qtpu_torch/csrc/pin_llr.cu``) == their
+    plain versions on the card, bit for bit, at the main path's shapes:
+    every production rung at B = 128 (``probe``: a BobSession of ``cfg``),
+    4 shards' rows (b = 32, == the unsharded call's rows), retry_small's 1
+    and 8 rows and the full-B retry, and every rung of the n = 4096 mixed
+    ladder at B = 1024 (``ms_probe``).  Timed at the rung a 3% prior
+    selects.  Returns {"qc_encode", "pin_llr", "llr_8": Draw}."""
+    import numpy as np
+    import torch
+    from qtpu_torch import window_assembly as wa
+    from qtpu_torch.ldpc import encode as enc
+    g = torch.Generator(device=dev).manual_seed(56)
+    out = {}
+
+    def bits(*shape):
+        return torch.randint(0, 2, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+
+    def rung_inputs(session, r, B):
+        code, layout = window_layout(session, r)
+        z = code.z
+        P = layout.widths[0] * z
+        prog = session.programs(r)
+        parts = [bits(B, w * z) if w else None for w in layout.widths]
+        a, ainv, b_s = session._affine_for(r, P)
+        pins = dict(rx=bits(B, P), short_alice=bits(B, prog.s_max),
+                    test_alice=bits(B, prog.k_pb),
+                    boff_t=torch.randint(0, P, (B,), generator=g,
+                                         device=dev),
+                    affine=(a, ainv, b_s), s=prog.s_max, k=prog.k_pb,
+                    s_max=prog.s_max, fill=parts[1],
+                    qmag=float(np.float32(np.log((1 - QBER) / QBER))),
+                    layout=layout)
+        return code, layout, parts, pins
+
+    def check_rung(session, r, B, label, reps):
+        code, layout, parts, pins = rung_inputs(session, r, B)
+        z, P = code.z, layout.widths[0] * code.z
+        encode = enc.make_parts_encoder(code, layout)
+        d = hold_kernel(
+            "qc_encode", f"{label} B={B}", lambda: encode(*parts),
+            lambda: enc.encode_parts_plain(code, layout, parts),
+            window_bound(B * code.n + B * code.m
+                         + 4 * (code.mb + 1 + 2 * code.num_edges
+                                + 2 * code.nb),
+                         B * code.num_edges * -(-z // 4)), reps)
+        fill_bytes = B * layout.widths[1] * z
+        d_pin = hold_kernel(
+            "pin_llr", f"{label} B={B}", lambda: wa.pin_llr(**pins),
+            lambda: wa.pin_llr_plain(**pins),
+            window_bound(B * (3 * P + pins["s"] + pins["k"] + 8 + 4
+                              + 4 * code.n) + fill_bytes + 8 * code.nb,
+                         2 * B * P), reps)
+        rx_pin, pin = wa.pin_llr(**pins)[:2]
+        pin = pin | (torch.rand(pin.shape, generator=g, device=dev) < 0.05)
+        hold_kernel("llr", f"{label} full retry B={B}",
+                    lambda: wa.llr(rx_pin, pin, parts[1], pins["qmag"],
+                                   layout),
+                    lambda: wa.llr_plain(rx_pin, pin, parts[1],
+                                         pins["qmag"], layout))
+        return d, d_pin, code, layout, parts, pins, rx_pin, pin
+
+    B = cfg.blocks_per_window
+    rung = prior_rung(cfg, dev)
+    for r, st in enumerate(probe.ladder.steps):
+        reps = 20 if r == rung else 0
+        res = check_rung(probe, r, B, f"rung {r} ({st.name})", reps)
+        if r == rung:
+            (out["qc_encode"], out["pin_llr"], code, layout, parts, pins,
+             rx_pin, pin) = res
+    say(f"window kernels: every rung of the production ladder at B={B} == "
+        f"plain (qc_encode, pin_llr, llr)")
+    # 4 shards' rows: each shard's call == plain and == the unsharded rows.
+    bl = B // MESH_SHARDS
+    full = wa.pin_llr(**pins)
+    for sh in range(MESH_SHARDS):
+        rows = slice(sh * bl, (sh + 1) * bl)
+        part = dict(pins, **{k: pins[k][rows].contiguous() for k in
+                             ("rx", "short_alice", "test_alice", "boff_t")},
+                    fill=None if pins["fill"] is None
+                    else pins["fill"][rows].contiguous())
+        hold_kernel("pin_llr", f"shard {sh} rows {sh * bl}..",
+                    lambda: wa.pin_llr(**part),
+                    lambda: wa.pin_llr_plain(**part))
+        for x, y in zip(wa.pin_llr(**part), full):
+            assert torch.equal(x, y[rows]), f"shard {sh}: != unsharded rows"
+    say(f"window kernels: {MESH_SHARDS} shards' rows (b = {bl}) == plain "
+        f"and == the unsharded call's rows")
+    # retry_small: 1 and 8 failed rows (index-selected, as the program does).
+    idx = torch.randperm(B, generator=g, device=dev)[:8].sort().values
+    for nrows in (1, 8):
+        sel = idx[:nrows]
+        rows_args = (rx_pin[sel], pin[sel],
+                     None if parts[1] is None else parts[1][sel],
+                     pins["qmag"], layout)
+        n_bytes = nrows * (2 * layout.widths[0] * code.z + 4 * code.n
+                           + layout.widths[1] * code.z) + 8 * code.nb
+        d = hold_kernel("llr", f"retry_small {nrows} rows",
+                        lambda: wa.llr(*rows_args),
+                        lambda: wa.llr_plain(*rows_args),
+                        window_bound(n_bytes, 0), 20 if nrows == 8 else 0)
+        if nrows == 8:
+            out["llr_8"] = d
+    # The n = 4096 mixed ladder at B = 1024 (min-sum sessions, the chain).
+    mB = ms_probe.config.blocks_per_window
+    for r, st in enumerate(ms_probe.ladder.steps):
+        check_rung(ms_probe, r, mB, f"n=4096 mixed rung {r} ({st.name})", 0)
+    say(f"window kernels: every rung of the n = 4096 mixed ladder at "
+        f"B={mB} == plain")
+    return out
+
+
+def window_kernel_launches(launches: dict) -> tuple[int, int]:
+    """(qc_encode, pin_llr + llr) launches of a path."""
+    return (launches.get("qc_encode", 0),
+            launches.get("pin_llr", 0) + launches.get("llr", 0))
+
+
+def _counters():
     from qtpu_torch import random as tr
+    from qtpu_torch import window_assembly as wa
     from qtpu_torch.ldpc import cuda_bp
+    from qtpu_torch.ldpc import encode as enc
+    return cuda_bp.launches, tr.launches, enc.launches, wa.launches
+
+
+def check_window_kernels(label, launches, windows, retried=False) -> dict:
+    """A path launched the encoder and the pin/LLR kernel (and, where it
+    ``retried``, the retries' LLR entry point); prints and returns their
+    launches a window."""
+    names = ("qc_encode", "pin_llr") + (("llr",) if retried else ())
+    for name in names:
+        assert launches[name] > 0, f"{label} never launched {name}"
+    per = {k: round(launches[k] / windows, 3)
+           for k in ("qc_encode", "pin_llr", "llr")}
+    say(f"{label} window-kernel launches a window over {windows} windows: "
+        f"{per}")
+    return per
+
+
+def reset_launches():
+    from qtpu_torch.ldpc import cuda_bp
+    for counts in _counters():
+        for name in counts:
+            counts[name] = 0
     for name in cuda_bp.launches:
-        cuda_bp.launches[name] = 0
         cuda_bp.launch_batches[name].clear()
-    for name in tr.launches:
-        tr.launches[name] = 0
 
 
 def read_launches() -> dict:
-    """The BP kernels' and the threefry entry points' launches."""
+    """The BP kernels', the threefry entry points', the encoder's and the
+    pin/LLR entry points' launches."""
     import torch
-    from qtpu_torch import random as tr
-    from qtpu_torch.ldpc import cuda_bp
     torch.cuda.synchronize()
-    return {**cuda_bp.launches, **tr.launches}
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def threefry_launches(launches: dict) -> int:
@@ -1128,7 +1334,7 @@ def mesh_worker(rank: int, port: int) -> int:
 def two_process_phase(dev, timeout):
     """Phase 16: two ``--mesh-worker`` processes on this card against the
     one-process 4-shard program; returns the ranks' summed launches (the
-    layered kernel's, the threefry entry points')."""
+    layered kernel's, the threefry entry points', (qc_encode, pin_llr))."""
     import os
     import socket
     from qtpu_torch.parallel import make_mesh
@@ -1168,12 +1374,16 @@ def two_process_phase(dev, timeout):
     launches = sum(o["launches"]["bp_layered"] for o in outs)
     threefry = sum(threefry_launches(o["launches"]) for o in outs)
     assert all(o["launches"]["threefry_randint"] > 0 for o in outs), outs
+    assert all(o["launches"]["pin_llr"] == MESH_SHARDS // 2
+               for o in outs), outs
+    window = tuple(map(sum, zip(*(window_kernel_launches(o["launches"])
+                                  for o in outs))))
     say(f"two processes (gloo over CUDA tensors): ranks 0 and 1 each own "
         f"{MESH_SHARDS // 2} of {MESH_SHARDS} shards on {dev}; psum'd "
         f"ledger {gled} on both == the one-process program's; stats rows "
-        f"equal; {launches} bp_layered and {threefry} threefry launches; "
-        f"{wall:.1f} s for both")
-    return launches, threefry
+        f"equal; {launches} bp_layered, {threefry} threefry, {window[0]} "
+        f"qc_encode and {window[1]} pin_llr launches; {wall:.1f} s for both")
+    return launches, threefry, window
 
 
 def bench_phase(timeout, code, decode):
@@ -1206,8 +1416,9 @@ def bench_phase(timeout, code, decode):
         assert counts["bp_layered"] > 0, f"bench {name}: no bp_layered"
     for name in ("full_chain", "per_chip"):
         for entry in ("threefry_seed_rows", "threefry_randint",
-                      "threefry_hash"):
+                      "threefry_hash", "pin_llr"):
             assert launches[name][entry] > 0, f"bench {name}: no {entry}"
+    assert launches["full_chain"]["qc_encode"] > 0, launches["full_chain"]
     bound_ms, bound_by = decode_bound(code, x["decode_blocks"],
                                       x["decode_iterations_sum"])
     assert (bound_ms, bound_by) == (decode.bound_ms, decode.bound_by), \
@@ -1371,14 +1582,23 @@ def torch_equal(got, ref) -> bool:
 
 
 # Kernel names of int64 xor and or, which only the plain threefry rounds
-# launch on the window cycle.
+# launch on the window cycle, and of torch.roll, which the plain syndrome
+# encoder launched once a base edge (the stream's arena compaction rolls
+# once in ~15 production windows).
 INT64_THREEFRY_OP = r"Bitwise(Xor|Or)Functor<long>"
+ROLL_OP = r"roll_cuda_kernel"
+# Launches a call of the programs whose eager op chains have kernels now
+# (PR 9's tree: alice 352, bob 61, retry_small 44), and a two-party
+# production window's launches on that tree.
+PROGRAM_LAUNCH_LIMITS = {"alice_program": 40, "bob_program": 40,
+                         "retry_small": 40}
+PARENT_LAUNCHES_PER_WINDOW = 648.3
 
 
 def profiling_phase() -> dict:
     """Phase 18, second part: ``python -m qtpu_torch.profiling programs
-    10`` and ``chain 6`` on this card.  Returns their summed BP kernel and
-    threefry launches."""
+    10`` and ``chain 6`` on this card.  Returns their summed BP kernel,
+    threefry, encoder and pin/LLR launches."""
     import re
     from qtpu_torch.profiling import PROGRAMS
     pr, _ = module_json("qtpu_torch.profiling", ["programs", "10"], 300)
@@ -1386,6 +1606,8 @@ def profiling_phase() -> dict:
         assert pr["launches"][name] > 0, (name, pr["launches"])
         assert pr["device_ms"][name] <= 1.05 * pr[name], \
             (name, pr["device_ms"][name], pr[name])
+    for name, limit in PROGRAM_LAUNCH_LIMITS.items():
+        assert pr["launches"][name] <= limit, (name, pr["launches"][name])
     assert pr["bp_launches"]["decode_only"] == {"bp_layered": 1.0,
                                                 "bp_flooding": 0.0}, pr
     assert pr["launches"]["pa_seed_gen"] == 1, pr["launches"]
@@ -1395,19 +1617,27 @@ def profiling_phase() -> dict:
     # may settle two at once.
     assert ch["windows"] >= 6 and 0 < tr["busy_share"] <= 1, ch
     plain_ops = [k["name"] for k in tr["top_kernels"]
-                 if re.search(INT64_THREEFRY_OP, k["name"])]
-    assert not plain_ops, f"int64 threefry ops among the top: {plain_ops}"
-    # With the cipher as plain int64 ops a window launched 5,442-6,038
-    # kernels, ~5,400 of them the cipher's.
-    assert tr["launches_per_window"] < 2500, tr["launches_per_window"]
+                 if re.search(INT64_THREEFRY_OP, k["name"])
+                 or (re.search(ROLL_OP, k["name"])
+                     and k["launches"] >= tr["windows"])]
+    assert not plain_ops, f"plain threefry or encoder ops among the top: " \
+        f"{plain_ops}"
+    assert tr["launches_per_window"] < PARENT_LAUNCHES_PER_WINDOW, \
+        tr["launches_per_window"]
+    say(f"profiling programs launches a call: "
+        + ", ".join(f"{k} {pr['launches'][k]}" for k in PROGRAMS))
     say(f"profiling chain: {ch['windows']} timed windows, "
         f"{ch['window_ms']} ms a window, busy share {tr['busy_share']} "
         f"({tr['busy_ms_per_window']} busy ms a window in {tr['windows']} "
         f"traced ones; {tr['busy_share_of']}; timed mix {ch['mix']}, traced "
-        f"mix {tr['mix']}); {tr['launches_per_window']} kernel launches and "
-        f"{tr['kernel_ms_per_window']} kernel ms a window")
+        f"mix {tr['mix']}); {tr['launches_per_window']} kernel launches a "
+        f"window (PR 9's tree: {PARENT_LAUNCHES_PER_WINDOW}) and "
+        f"{tr['kernel_ms_per_window']} kernel ms a window; top kernels "
+        + "; ".join(f"{k['name'][:60]} {k['ms']} ms x {k['launches']}"
+                    for k in tr["top_kernels"]))
     return {k: pr[total][k] + ch[total][k]
-            for total in ("bp_launches_total", "threefry_launches_total")
+            for total in ("bp_launches_total", "threefry_launches_total",
+                          "window_kernel_launches_total")
             for k in pr[total]}
 
 
@@ -1428,8 +1658,10 @@ def main() -> int:
     import numpy as np
     from qtpu_torch import _build
     from qtpu_torch import random as tr
+    from qtpu_torch import window_assembly as wa
     from qtpu_torch.chain import ChainConfig
     from qtpu_torch.ldpc import cuda_bp
+    from qtpu_torch.ldpc import encode as enc
     from qtpu_torch.ldpc.codes import make_rate_ladder, make_regular_code
     from qtpu_torch.pipeline import PipelineConfig, production_config
     from qtpu_torch.pa import toeplitz_margin
@@ -1444,7 +1676,8 @@ def main() -> int:
 
     # 2. build, one nvcc per source, in parallel
     t = time.perf_counter()
-    libraries = (*cuda_bp.KERNELS.values(), tr.LIBRARY)
+    libraries = (*cuda_bp.KERNELS.values(), tr.LIBRARY, enc.LIBRARY,
+                 wa.LIBRARY)
     _build.build(*libraries)
     dt = time.perf_counter() - t
     for name in libraries:
@@ -1588,6 +1821,14 @@ def main() -> int:
     # 5b. the threefry kernel vs its plain versions
     draws = threefry_phase(dev, cfg, ladder, probe)
 
+    # 5c. the syndrome encoder and the pin/LLR kernel vs their plain versions
+    ms_cfg = PipelineConfig(n=4096, family="mixed", alg="minsum",
+                            blocks_per_window=1024, qber_test_bits=8192,
+                            stream_capacity_bits=1 << 25)
+    assembled = window_kernels_phase(
+        dev, cfg, probe,
+        BobSession(ms_cfg, 0x5E55, make_direct_pair()[1], device=dev))
+
     # 6. the production session on this card
     a_src, b_src = bsc_on_card(
         dev, (SESSION_WINDOWS + 4) * cfg.n * cfg.blocks_per_window, 7)
@@ -1599,15 +1840,19 @@ def main() -> int:
             plain_calls[name] += 1
             return fn(*args, **kwargs)
         return call
-    # No plain (int64) threefry op and no key fill on the card's main path.
-    with mock.patch.object(tr, "_threefry2x32",
-                           counted("threefry2x32", tr._threefry2x32)), \
-            mock.patch.object(tr, "key_from_data",
-                              counted("key_from_data", tr.key_from_data)):
+    # No plain (int64) threefry op, no key fill and no plain encoder or
+    # pin/LLR assembly on the card's main path.
+    plain_fns = [(tr, "_threefry2x32"), (tr, "key_from_data"),
+                 (enc, "encode_plain"), (enc, "encode_parts_plain"),
+                 (wa, "pin_llr_plain"), (wa, "llr_plain")]
+    with contextlib.ExitStack() as patches:
+        for owner, name in plain_fns:
+            patches.enter_context(mock.patch.object(
+                owner, name, counted(name, getattr(owner, name))))
         alice, bob, timed = run_session(cfg, a_src, b_src, dev,
                                         SESSION_WINDOWS, feed_chunk=1 << 23)
     prod = read_launches()
-    assert not plain_calls, f"session ran plain threefry ops: {plain_calls}"
+    assert not plain_calls, f"session ran plain versions: {plain_calls}"
     prod_batches = dict(cuda_bp.launch_batches["bp_layered"])
     mets = check_session("session", alice, bob, timed, prod, "bp_layered")
     assert len({m.rate_index for m in mets}) > 1, "no rung switch"
@@ -1623,12 +1868,12 @@ def main() -> int:
         f"{len(mets)} windows = {tf_per_window:.3f} per window ("
         + ", ".join(f"{k} {prod[k] / len(mets):.3f}" for k in tr.launches)
         + "); no plain threefry op, no key fill")
+    wk_per_window = check_window_kernels("session", prod, len(mets),
+                                         retried=True)
     del alice, bob, a_src, b_src
 
-    # 7. the min-sum session (flooding decoder) on this card
-    ms_cfg = PipelineConfig(n=4096, family="mixed", alg="minsum",
-                            blocks_per_window=1024, qber_test_bits=8192,
-                            stream_capacity_bits=1 << 25)
+    # 7. the min-sum session (flooding decoder) on this card, at 5c's
+    # ms_cfg
     a_src, b_src = bsc_on_card(
         dev, (MINSUM_WINDOWS + 4) * ms_cfg.n * ms_cfg.blocks_per_window, 8)
     reset_launches()
@@ -1639,6 +1884,7 @@ def main() -> int:
                             ms_launches, "bp_flooding")
     f_per_window = ms_launches["bp_flooding"] / len(ms_mets)
     assert ms_launches["bp_layered"] == 0, "min-sum session ran bp_layered"
+    check_window_kernels("minsum session", ms_launches, len(ms_mets))
     del alice, bob, a_src, b_src
 
     # 8. the events -> key chain on this card
@@ -1659,6 +1905,7 @@ def main() -> int:
         "chain ledgers differ"
     assert chain_launches["bp_flooding"] > 0, "chain never ran bp_flooding"
     assert chain_launches["bp_layered"] == 0, "chain ran bp_layered"
+    check_window_kernels("chain", chain_launches, len(bob.ec.metrics))
     led = bob.ec.ledger
     say(f"chain: {CHAIN_WINDOWS} simulation windows at "
         f"{CHAIN_SOURCE['pair_rate_hz']:.0e} pairs/s, pfind error "
@@ -1790,7 +2037,8 @@ def main() -> int:
     del alice, bob, a_src, b_src
 
     # 16. two processes, each owning half of the mesh
-    two_launches, two_threefry = two_process_phase(dev, timeout=300)
+    two_launches, two_threefry, two_window = two_process_phase(dev,
+                                                               timeout=300)
 
     # 17. the bench, through the CLI
     bench_out, bench_launches, bench_s, b_bound = bench_phase(
@@ -1817,6 +2065,10 @@ def main() -> int:
         "mesh_stream_pa_session": mst_launches,
         **{f"bench_{k}": v for k, v in bench_launches.items()}, **measured}
     seed, offsets, chunk = draws["seed_rows"], draws["randint"], draws["hash"]
+    encoder, pins, llr8 = (assembled["qc_encode"], assembled["pin_llr"],
+                           assembled["llr_8"])
+    wk_paths = {name: window_kernel_launches(counts)
+                for name, counts in tf_paths.items()}
 
     say(json.dumps({"kernels": [{
         "name": "bp_layered", "route": "cuda",
@@ -1885,7 +2137,43 @@ def main() -> int:
            for entry, d in (("randint", offsets), ("hash", chunk))
            for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "bound_by_randint": offsets.bound_by,
-        "bound_by_hash": chunk.bound_by}]}))
+        "bound_by_hash": chunk.bound_by}, {
+        "name": "qc_encode", "route": "cuda",
+        "source": "qtpu_torch/csrc/qc_encode.cu",
+        "replaces": "qtpu/window_programs.py:269-278",
+        "replaces_also": ["qtpu/window_programs.py:389-400",
+                          "qtpu/ldpc/encode.py:34-52"],
+        "launches": prod["qc_encode"],
+        **{f"launches_{name}": n[0] for name, n in wk_paths.items()},
+        "launches_two_processes": two_window[0],
+        "launches_per_window": wk_per_window["qc_encode"],
+        "max_abs_err": float(encoder.err), "ms": round(encoder.ms, 4),
+        "device_ms": round(encoder.device_ms, 4),
+        "plain_ms": round(encoder.plain_ms, 2),
+        "bound_ms": round(encoder.bound_ms, 5),
+        "bound_by": encoder.bound_by, "library_ms": None,
+        "timed": "the rung a 3% prior selects, B = 128"}, {
+        "name": "pin_llr", "route": "cuda",
+        "source": "qtpu_torch/csrc/pin_llr.cu",
+        "replaces": "qtpu/window_programs.py:345-362",
+        "replaces_also": ["qtpu/window_programs.py:423-453",
+                          "qtpu/window_programs.py:455-471"],
+        "launches": prod["pin_llr"] + prod["llr"],
+        "launches_by_entry": {k: prod[k] for k in wa.launches},
+        **{f"launches_{name}": n[1] for name, n in wk_paths.items()},
+        "launches_two_processes": two_window[1],
+        "launches_per_window": round(wk_per_window["pin_llr"]
+                                     + wk_per_window["llr"], 3),
+        "max_abs_err": float(max(pins.err, llr8.err)),
+        "ms": round(pins.ms, 4), "device_ms": round(pins.device_ms, 4),
+        "plain_ms": round(pins.plain_ms, 2),
+        "bound_ms": round(pins.bound_ms, 5), "bound_by": pins.bound_by,
+        "library_ms": None,
+        "timed": "pin_llr: Bob's first decode at the rung a 3% prior "
+                 "selects, B = 128",
+        **{f"{f}_llr_8_rows": float(f"{getattr(llr8, f):.4g}")
+           for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        "bound_by_llr_8_rows": llr8.bound_by}]}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

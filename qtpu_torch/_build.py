@@ -10,6 +10,7 @@ a compiler.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "build_log"]
+__all__ = ["NVCC_FLAGS", "build", "load", "build_log", "entry", "call"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -125,3 +126,25 @@ def build_log(name: str) -> str:
     """The compiler's report (``-Xptxas -v``: registers, spills, shared
     memory) from the build of ``name``."""
     return _LOGS.get(name, "")
+
+
+@functools.cache
+def entry(library: str, name: str, argtypes: tuple):
+    """Entry point ``qtpu_<name>`` of ``library`` (built and loaded at
+    first use), typed: an int return code, ``argtypes``."""
+    fn = getattr(load(library), f"qtpu_{name}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return fn
+
+
+def call(library: str, name: str, argtypes: tuple, dev, *args) -> None:
+    """Call entry point ``qtpu_<name>`` of ``library`` with ``args`` and
+    the current stream of CUDA device ``dev``; raises when it returns an
+    error (a refused launch, arguments it does not take)."""
+    import torch
+    fn = entry(library, name, argtypes)
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed (code {rc})")

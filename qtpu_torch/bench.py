@@ -13,9 +13,9 @@ Prints one JSON line {"metric", "value", "unit", "vs_baseline", "extra"}
 with the reference's metric names and extra keys, plus ``extra["device"]``
 (the card's name and power limit from nvidia-smi, or "cpu"), and writes it
 to ``build/qtpu_torch/bench_last_run.json``.  The line before it,
-``bench launches: {...}``, holds each BP kernel's and each threefry entry
-point's launches per measurement (the counts are set to 0 before each
-one).
+``bench launches: {...}``, holds the launches of each BP kernel, each
+threefry entry point, the syndrome encoder and each pin/LLR entry point
+per measurement (the counts are set to 0 before each one).
 
 The judged value is ``measure_party("bob")``: Bob's side of the
 production session replayed alone against the recorded peer messages (a
@@ -661,18 +661,22 @@ def _sift_events_per_s(dev: torch.device) -> float:
 
 def run(dev: torch.device) -> tuple[dict, dict]:
     """Every measurement of the bench on ``dev``: (the result line, each
-    measurement's BP kernel and threefry launches)."""
+    measurement's BP kernel, threefry, encoder and pin/LLR launches)."""
     from qtpu_torch import random as tf
-    from qtpu_torch.ldpc import cuda_bp
+    from qtpu_torch import window_assembly
+    from qtpu_torch.ldpc import cuda_bp, encode
     launches = {}
+    counters = (cuda_bp.launches, tf.launches, encode.launches,
+                window_assembly.launches)
 
     def counted(name, fn):
-        for counts in (cuda_bp.launches, tf.launches):
+        for counts in counters:
             for k in counts:
                 counts[k] = 0
         out = fn()
         _sync(dev)
-        launches[name] = {**cuda_bp.launches, **tf.launches}
+        launches[name] = {k: v for counts in counters
+                          for k, v in counts.items()}
         return out
 
     extra = {"device": device_name(dev), "host": _host()}

@@ -489,6 +489,13 @@ def full_chain(device=DEFAULT_DEVICE, windows: int = 6, warmup: int = 6,
             "phases": phases, "trace": trace, "host": host}
 
 
+def _window_kernel_launches() -> dict:
+    """The syndrome encoder's and the pin/LLR entry points' launches."""
+    from qtpu_torch import window_assembly
+    from qtpu_torch.ldpc import encode
+    return {**encode.launches, **window_assembly.launches}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="qtpu_torch.profiling", description=__doc__,
@@ -507,6 +514,7 @@ def main(argv=None) -> int:
     dev = entry_device("qtpu_torch.profiling", args.device)
     before = dict(cuda_bp.launches)
     tf_before = dict(tr.launches)
+    wk_before = _window_kernel_launches()
     if args.what == "programs":
         out = programs(dev, reps=args.count or 20)
         print(f"rung={out['rung']} s={out['short_bits']} k_pb={out['k_pb']} "
@@ -525,6 +533,8 @@ def main(argv=None) -> int:
                              for k, v in cuda_bp.launches.items()}
     out["threefry_launches_total"] = {k: v - tf_before[k]
                                       for k, v in tr.launches.items()}
+    out["window_kernel_launches_total"] = {
+        k: v - wk_before[k] for k, v in _window_kernel_launches().items()}
     out["device"] = device_name(dev)
     print(json.dumps(out), flush=True)
     return 0

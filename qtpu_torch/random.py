@@ -36,7 +36,6 @@ launch) and ``randint_at`` (``randint`` on the same row keys, one launch).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -189,16 +188,6 @@ def randint_at_plain(key_words, tags, rows, span: int,
 # ---------------------------------------------------------------------------
 # The kernel's wrapper.
 
-@functools.cache
-def _entry(name: str):
-    """Entry point ``qtpu_<name>`` of the built library, typed."""
-    from qtpu_torch import _build
-    fn = getattr(_build.load(LIBRARY), f"qtpu_{name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[name]
-    return fn
-
-
 def _on_card(device: torch.device) -> bool:
     """True for a CUDA device, False for the CPU; raises for another."""
     if device.type not in ("cpu", "cuda"):
@@ -221,14 +210,17 @@ def _check(t: torch.Tensor, what: str, ndim=None) -> None:
                          f"tensor")
 
 
+def _entry(name: str):
+    """Entry point ``qtpu_<name>`` of the built library, typed."""
+    from qtpu_torch import _build
+    return _build.entry(LIBRARY, name, tuple(_ARGTYPES[name]))
+
+
 def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call entry point ``name`` with ``args`` and the current stream of
-    ``dev``; raises when the launch fails, counts it when it does not."""
-    fn = _entry(name)
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed (code {rc})")
+    """Call entry point ``name`` with ``args`` on ``dev``'s current stream
+    (raises when it fails) and count the launch."""
+    from qtpu_torch import _build
+    _build.call(LIBRARY, name, tuple(_ARGTYPES[name]), dev, *args)
     launches[name] += 1
 
 

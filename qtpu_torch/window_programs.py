@@ -27,7 +27,12 @@ PyTorch runs eagerly, so the 12-word header stays a host numpy array and
 its fields are plain Python ints; index arrays chosen by the host protocol
 (retry positions and rows) arrive as numpy too.  The decoder (layered or
 flooding min-sum) is its Hopper kernel for CUDA tensors and its plain
-PyTorch version for CPU tensors (``qtpu_torch.ldpc.cuda_bp``).
+PyTorch version for CPU tensors (``qtpu_torch.ldpc.cuda_bp``); so are the
+work the reference's XLA fuses around it: Alice's syndrome encoder, which
+reads the codeword's payload, shortening-fill and puncture-pad columns
+where they lie (``qtpu_torch.ldpc.encode``, ``csrc/qc_encode.cu``), and
+Bob's pins, mismatch count and LLRs (``qtpu_torch.window_assembly``,
+``csrc/pin_llr.cu``).
 
 With a mesh (``qtpu_torch.parallel.Mesh``), ``bob`` runs the single-device
 body once per local shard on that shard's rows and device (protocol
@@ -46,12 +51,13 @@ import numpy as np
 import torch
 
 from qtpu_torch import random as tr
+from qtpu_torch import window_assembly as wa
 from qtpu_torch.accounting import LEDGER_FIELDS
 from qtpu_torch.ldpc.codes import QCCode
 from qtpu_torch.pa import _toeplitz_hash
 from qtpu_torch.parallel import psum_ledger
-from qtpu_torch.ldpc.decode import BIG_LLR, make_batch_decoder
-from qtpu_torch.ldpc.encode import make_batch_encoder
+from qtpu_torch.ldpc.decode import make_batch_decoder
+from qtpu_torch.ldpc.encode import ColumnLayout, make_parts_encoder
 
 __all__ = ["WindowPrograms", "make_window_programs", "make_header",
            "choose_affine"]
@@ -135,7 +141,6 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
     ``qtpu_torch.parallel.Mesh`` — shards Bob's program over it (B must
     split evenly) with a psum'd decode-stage ledger."""
     device = torch.device(device)
-    n = code.n
     B = int(batch)
     P = int(pay_pos.size)
     assert P <= 1 << 17, "affine-mod arithmetic assumes P <= 2^17"
@@ -152,8 +157,11 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
     short_cols = np.unique(np.asarray(short_pos, np.int64) // code.z) \
         if len(short_pos) else np.zeros(0, np.int64)
     decoder = make_batch_decoder(code, max_iters, alg)
-    encode = make_batch_encoder(code)
     nb, z = code.nb, code.z
+    # Column-class layout: codeword columns ordered payload | short | punct,
+    # then one static permutation back to base-column order.
+    layout = ColumnLayout(nb, z, pay_cols, short_cols, punct_cols)
+    encode = make_parts_encoder(code, layout)
     if mesh is not None and B % mesh.size:
         raise ValueError(f"{B} blocks per window do not split into "
                          f"{mesh.size} shards")
@@ -161,15 +169,11 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
     def _t(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    # Column-class layout: codeword columns ordered payload | short | punct,
-    # then one static permutation back to base-column order.  The index
-    # tensors exist once per device a program runs on (each shard's).
-    inv_np = np.argsort(np.concatenate([pay_cols, short_cols, punct_cols]))
+    # The payload columns' index, once per device a program runs on (each
+    # shard's).
     devices = [device] + (mesh.devices if mesh is not None else [])
-    index = {d: (torch.as_tensor(inv_np, dtype=torch.int64, device=d),
-                 torch.as_tensor(pay_cols, dtype=torch.int64, device=d),
-                 torch.arange(P, dtype=torch.int64, device=d))
-             for d in devices}
+    pay_index = {d: torch.as_tensor(pay_cols, dtype=torch.int64, device=d)
+                 for d in devices}
 
     def _frame(arena, header, b, row0, dev):
         """(b, P) payload slab on ``dev``: a copy of the stream at the
@@ -178,29 +182,10 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         off = int(header[0]) + row0 * P
         return arena[off:off + b * P].to(dev, copy=True).reshape(b, P)
 
-    def _disclosure_positions(header, rows, dev):
-        """(pos_s (Sm,), pos_t (b, Kq), boff_t (b,)): the shortening family
-        is window-level (stride a, offset b); the test family continues the
-        same stride at per-block PRNG offsets."""
-        a, boff_s = int(header[7]), int(header[9])
-        i = torch.arange(Sm, dtype=torch.int64, device=dev)
-        pos_s = (a * i % P + boff_s) % P
-        boff_t = tr.randint_at(header[2:4], (TAG_TOFF,), rows, P, dev)
-        j = torch.arange(Sm, Sm + Kq, dtype=torch.int64, device=dev)
-        pos_t = ((a * j % P)[None, :] + boff_t[:, None]) % P
-        return pos_s, pos_t, boff_t
-
-    def _pin_masks(header, boff_t, dev):
-        """Elementwise pin masks: position p is a shortening pin iff
-        a^-1(p - b) mod P < s, a test pin iff its per-block inverse lands in
-        [Sm, Sm + k)."""
-        ainv, s, k = int(header[8]), int(header[1]), int(header[6])
-        p_idx = index[dev][2]
-        inv_s = ainv * ((p_idx + P - int(header[9])) % P) % P
-        m_short = (inv_s < s)[None, :]
-        inv_t = ainv * ((p_idx[None, :] + P - boff_t[:, None]) % P) % P
-        m_test = (inv_t >= Sm) & (inv_t < Sm + k)
-        return m_short | m_test
+    def _test_offsets(header, rows, dev):
+        """(b,) per-block offsets of the test family of disclosure
+        positions (``window_assembly.disclosure_positions``)."""
+        return tr.randint_at(header[2:4], (TAG_TOFF,), rows, P, dev)
 
     def _vmatrix(header, dev):
         """(Vh, P) float32 Toeplitz verification matrix from one window-
@@ -216,36 +201,19 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         return (acc.to(torch.int32) & 1).to(torch.uint8)
 
     def _shortfill(header, rows, dev):
+        """(b, Ns·z) shortening-fill bits of the shortened columns, or None
+        where the rung has none."""
+        if not short_cols.size:
+            return None
         return tr.seed_rows_at(header[2:4], (TAG_SHORTFILL,), rows,
                                int(short_cols.size) * z, dev)
 
-    def _build_codeword(payload, header, rows, punct_bits, dev):
-        b = payload.shape[0]
-        parts = [payload.reshape(b, -1, z)]
-        if short_cols.size:
-            parts.append(_shortfill(header, rows, dev).reshape(b, -1, z))
-        if punct_cols.size:
-            parts.append(punct_bits.reshape(b, -1, z))
-        x = torch.cat(parts, dim=1)     # class order
-        return x[:, index[dev][0], :].reshape(b, n)
-
     def _extract_payload(x_bits, dev):
         b = x_bits.shape[0]
-        return x_bits.reshape(b, nb, z)[:, index[dev][1], :].reshape(b, P)
+        return x_bits.reshape(b, nb, z)[:, pay_index[dev], :].reshape(b, P)
 
-    def _llr(rx, pin, header, rows, qmag, dev):
-        b = rx.shape[0]
-        sign = 1.0 - 2.0 * rx.to(torch.float32)
-        mag = torch.where(pin, BIG_LLR, float(qmag))    # float32
-        parts = [(sign * mag).reshape(b, -1, z)]
-        if short_cols.size:
-            ssign = 1.0 - 2.0 * _shortfill(header, rows, dev).to(torch.float32)
-            parts.append((ssign * BIG_LLR).reshape(b, -1, z))
-        if punct_cols.size:
-            parts.append(torch.zeros((b, int(punct_cols.size), z),
-                                     dtype=torch.float32, device=dev))
-        llr = torch.cat(parts, dim=1)[:, index[dev][0], :]
-        return llr.reshape(b, n).contiguous()
+    def _affine(header):
+        return int(header[7]), int(header[8]), int(header[9])
 
     def alice_program(arena, header):
         rows = range(B)
@@ -255,19 +223,20 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
                                     int(punct_cols.size) * z, device)
         else:
             punct = None
-        x = _build_codeword(payload, header, rows, punct, device)
-        syn = encode(x)
+        # The codeword's parts go to the encoder as they are: it reads each
+        # base column from its part (no assembled codeword).
+        syn = encode(payload, _shortfill(header, rows, device), punct)
         hashes = _verify_hash(_vmatrix(header, device), payload)
-        pos_s, pos_t, _ = _disclosure_positions(header, rows, device)
+        pos_s, pos_t = wa.disclosure_positions(
+            _affine(header), _test_offsets(header, rows, device), P, Sm, Kq)
         short_vals = payload[:, pos_s]                       # (B, Sm)
         test_vals = torch.gather(payload, 1, pos_t)          # (B, Kq)
         return payload, syn, hashes, test_vals, short_vals
 
-    def _decode_core(header, rx_orig, rx_pin, pinmask, syndromes,
-                     exp_hashes, qmag, rows, dev):
-        """LLR assembly -> decode -> verify.  stats: (b,3) [ok, iters,
-        errs].  Shared by the first decode and the retry re-decode."""
-        llr = _llr(rx_pin, pinmask, header, rows, qmag, dev)
+    def _decode_core(header, rx_orig, rx_pin, pinmask, llr, syndromes,
+                     exp_hashes, dev):
+        """Decode the assembled ``llr`` -> verify.  stats: (b,3) [ok,
+        iters, errs].  Shared by the first decode and the retry re-decode."""
         res = decoder(llr, syndromes.contiguous())
         hat = torch.where(pinmask, rx_pin, _extract_payload(res.bits, dev))
         hashes = _verify_hash(_vmatrix(header, dev), hat)
@@ -284,20 +253,16 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         b = test_alice.shape[0]
         rows = range(row0, row0 + b)    # global block indices
         rx_orig = _frame(arena, header, b, row0, dev)
-        pos_s, pos_t, boff_t = _disclosure_positions(header, rows, dev)
-        s, k = int(header[1]), int(header[6])
-        # Pin disclosed positions to Alice's (true) values: disclosure
-        # doubles as shortening.  Only the first s / k columns of the
-        # static-width disclosures are live.
-        rx_pin = rx_orig.clone()
-        rx_pin[:, pos_s[:s]] = short_alice[:, :s]
-        rx_pin.scatter_(1, pos_t[:, :k], test_alice[:, :k])
-        pinmask = _pin_masks(header, boff_t, dev)
-        # Every disclosed bit is a ground-truth channel sample.
-        mism = (rx_pin ^ rx_orig).to(torch.int32).sum(dim=1,
-                                                      dtype=torch.int32)
-        hat, stats = _decode_core(header, rx_orig, rx_pin, pinmask,
-                                  syndromes, exp_hashes, qmag, rows, dev)
+        # Pin disclosed positions to Alice's (true) values (disclosure
+        # doubles as shortening), count the mismatches and assemble the
+        # LLR: one pass (window_assembly).
+        rx_pin, pinmask, mism, llr = wa.pin_llr(
+            rx_orig, short_alice, test_alice,
+            _test_offsets(header, rows, dev), _affine(header),
+            int(header[1]), int(header[6]), Sm,
+            _shortfill(header, rows, dev), qmag, layout)
+        hat, stats = _decode_core(header, rx_orig, rx_pin, pinmask, llr,
+                                  syndromes, exp_hashes, dev)
         stats = torch.cat([stats, mism[:, None]], dim=1)
         return hat, rx_orig, rx_pin, pinmask, stats
 
@@ -368,9 +333,10 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         pin2 = pinmask.clone()
         pin2[:, pos] = True
         pin2 = torch.where(failed_b, pin2, pinmask)
-        hat2, st2 = _decode_core(header, rx_orig, rx2, pin2, syndromes,
-                                 exp_hashes, qmag, range(B),
-                                 device)
+        llr = wa.llr(rx2, pin2, _shortfill(header, range(B), device), qmag,
+                     layout)
+        hat2, st2 = _decode_core(header, rx_orig, rx2, pin2, llr, syndromes,
+                                 exp_hashes, device)
         failed_b = failed_b[:, 0]
         ok = stats[:, 0].to(torch.bool) | (failed_b & st2[:, 0].to(torch.bool))
         hat_m = torch.where(failed_b[:, None], hat2, hat)
@@ -394,8 +360,10 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         rx2_rows[:, pos] = bits[sel]
         pin2_rows = pinmask[sel]
         pin2_rows[:, pos] = True
+        llr = wa.llr(rx2_rows, pin2_rows, _shortfill(header, sel, device),
+                     qmag, layout)
         hat_r, st_r = _decode_core(header, rx_orig[sel], rx2_rows, pin2_rows,
-                                   syndromes[sel], exp_hashes[sel], qmag, sel,
+                                   llr, syndromes[sel], exp_hashes[sel],
                                    device)
         hat_m = hat.clone()
         hat_m[sel] = hat_r

@@ -1,5 +1,5 @@
-"""qtpu_torch on the card: both BP kernels, the threefry kernel, sessions
-and sifting on CUDA.
+"""qtpu_torch on the card: both BP kernels, the threefry kernel, the
+syndrome encoder and pin/LLR kernels, sessions and sifting on CUDA.
 
 Marked ``cuda``; every test skips without a CUDA device.  On a machine with
 a card (which has no JAX, so the JAX import of tests/conftest.py must be
@@ -12,7 +12,11 @@ iterations, converged; the layered kernel at every native3 rung of
 n = 65536, hence at every cluster size the production ladder uses), the
 threefry kernel's three entry points against the plain PyTorch versions
 of ``qtpu_torch.random`` (seed rows at the PA seed's, the verify seed's and
-the pad's lengths, offsets at the ladder's spans), a session on the card against the same session on
+the pad's lengths, offsets at the ladder's spans), the encoder and the
+pin/LLR kernels against their plain versions (every rung of the n = 1024
+and n = 4096 ladders, shortened and parallel-edge codes, unaligned parts;
+LLRs by their float32 bit patterns), a session on the card against the
+same session on
 the CPU (final keys, ledgers, per-window metrics), the bench's BSC stream
 on the card against the CPU and its per-chip replay on the card, and the
 sift functions on the card against the CPU on the same events (residuals
@@ -454,6 +458,133 @@ def test_threefry_rejects_bad_inputs_on_card(dev):
         tr.fold_in(torch.zeros(2, dtype=torch.int64, device=dev),
                    torch.zeros(3, dtype=torch.int32, device=dev))
     assert tr.launches == before
+
+
+# The window programs' syndrome encoder (csrc/qc_encode.cu) and pin/LLR
+# assembly (csrc/pin_llr.cu); chip_smoke.py phase 5c holds both at every
+# production rung.
+
+def _window_layouts():
+    """(name, code, ColumnLayout): every rung of the n = 1024 and mixed
+    n = 4096 ladders, a regular n = 1024 code with shortened and punctured
+    columns, and a code with parallel edges (z = 16)."""
+    from qtpu_torch.ldpc.encode import ColumnLayout
+    out = []
+    for cfg in (PipelineConfig(n=1024),
+                PipelineConfig(n=4096, family="mixed", alg="minsum")):
+        lad = make_rate_ladder(cfg.n, cfg.dv, cfg.target_rates,
+                               seed=cfg.code_seed, alg=cfg.alg,
+                               family=cfg.family)
+        for r, st in enumerate(lad.steps):
+            sh, pu = list(st.short_cols), list(st.punct_cols)
+            pay = [c for c in range(st.code.nb) if c not in sh + pu]
+            out.append((f"n{cfg.n} r{r}", st.code,
+                        ColumnLayout(st.code.nb, st.code.z, pay, sh, pu)))
+    reg = make_regular_code(1024)
+    out.append(("regular short+punct", reg,
+                ColumnLayout(reg.nb, reg.z, [c for c in range(reg.nb)
+                                             if c not in (3, 9)], [3], [9])))
+    par = _parallel_edge_code()
+    out.append(("parallel edges", par, ColumnLayout(4, 16, [0, 3], [2], [1])))
+    return out
+
+
+def _card_parts(layout, B, g, offset=0):
+    """Random uint8 parts on the card, each ``offset`` bytes into its own
+    buffer (offset 1: no part is 16-byte aligned)."""
+    out = []
+    for w in layout.widths:
+        if not w:
+            out.append(None)
+            continue
+        size = B * w * layout.z
+        buf = torch.randint(0, 2, (size + offset,), generator=g,
+                            device=g.device, dtype=torch.uint8)
+        out.append(buf[offset:].view(B, w * layout.z))
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 8, 33])
+def test_qc_encode_on_card_matches_plain(dev, B):
+    from qtpu_torch.ldpc import encode as enc
+    g = torch.Generator(device=dev).manual_seed(B)
+    for name, code, layout in _window_layouts():
+        kern = enc.make_parts_encoder(code, layout)
+        for offset in (0, 1):
+            parts = _card_parts(layout, B, g, offset)
+            before = enc.launches["qc_encode"]
+            got = kern(*parts)
+            torch.cuda.synchronize()
+            assert enc.launches["qc_encode"] == before + 1
+            assert got.is_cuda and torch.equal(
+                got, enc.encode_parts_plain(code, layout, parts)), \
+                (name, offset)
+        x = torch.randint(0, 2, (B, code.n), generator=g, device=dev,
+                          dtype=torch.uint8)
+        assert torch.equal(enc.make_batch_encoder(code)(x),
+                           enc.encode_plain(code, x)), name
+
+
+def _pin_inputs(layout, B, g, s_max=96, k_max=16):
+    """Random disclosures whose shortening family overlaps block 0's test
+    family on min(s, k) positions, Alice's values there disagreeing."""
+    P = layout.widths[0] * layout.z
+    dev = g.device
+    bits = (lambda *shape: torch.randint(0, 2, shape, generator=g,
+                                         device=dev, dtype=torch.uint8))
+    boff_t = torch.randint(0, P, (B,), generator=g, device=dev)
+    a = 5 if P % 5 else 7
+    affine = (a, pow(a, -1, P), (a * s_max + int(boff_t[0])) % P)
+    fill = bits(B, layout.widths[1] * layout.z) if layout.widths[1] else None
+    return dict(rx=bits(B, P), short_alice=bits(B, s_max),
+                test_alice=bits(B, k_max), boff_t=boff_t, affine=affine,
+                s=s_max // 2, k=k_max // 2, s_max=s_max, fill=fill,
+                qmag=float(np.float32(np.log(0.97 / 0.03))), layout=layout)
+
+
+@pytest.mark.parametrize("B", [1, 8, 33])
+def test_pin_llr_on_card_matches_plain(dev, B):
+    from qtpu_torch import window_assembly as wa
+    g = torch.Generator(device=dev).manual_seed(100 + B)
+    for name, _, layout in _window_layouts():
+        if layout.widths[0] * layout.z < 256:
+            continue            # the disclosures need P >= s_max + k_max
+        args = _pin_inputs(layout, B, g)
+        before = dict(wa.launches)
+        got = wa.pin_llr(**args)
+        torch.cuda.synchronize()
+        assert wa.launches == dict(before, pin_llr=before["pin_llr"] + 1)
+        want = wa.pin_llr_plain(**args)
+        for x, y in zip(got, want):
+            assert x.is_cuda and x.dtype == y.dtype and torch.equal(
+                x.view(torch.int32) if x.is_floating_point() else x,
+                y.view(torch.int32) if y.is_floating_point() else y), name
+        pin = got[1] | (torch.rand(got[1].shape, generator=g,
+                                   device=dev) < 0.1)
+        out = wa.llr(got[0], pin, args["fill"], args["qmag"], layout)
+        ref = wa.llr_plain(got[0], pin, args["fill"], args["qmag"], layout)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), \
+            name
+
+
+def test_window_kernels_reject_bad_inputs_on_card(dev):
+    from qtpu_torch import window_assembly as wa
+    from qtpu_torch.ldpc import encode as enc
+    name, code, layout = _window_layouts()[-2]
+    g = torch.Generator(device=dev).manual_seed(9)
+    parts = _card_parts(layout, 4, g)
+    args = _pin_inputs(layout, 4, g)
+    before = (dict(enc.launches), dict(wa.launches))
+    kern = enc.make_parts_encoder(code, layout)
+    with pytest.raises(ValueError, match="contiguous"):
+        kern(parts[0].T.contiguous().T, *parts[1:])
+    with pytest.raises(ValueError, match="is on cpu"):
+        kern(parts[0], parts[1].cpu(), parts[2])
+    with pytest.raises(ValueError, match="boff_t must be"):
+        wa.pin_llr(**dict(args, boff_t=args["boff_t"].to(torch.int32)))
+    with pytest.raises(ValueError, match="pin must be"):
+        wa.llr(args["rx"], args["rx"], args["fill"], 1.0, layout)
+    assert (enc.launches, wa.launches) == before
 
 
 def test_bench_replay_on_card(dev):

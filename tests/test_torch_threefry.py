@@ -159,9 +159,9 @@ def no_kernel(monkeypatch):
     def fail(name):
         raise RuntimeError(f"cannot build {name}")
     monkeypatch.setattr(_build, "load", fail)
-    tr._entry.cache_clear()
+    _build.entry.cache_clear()
     yield
-    tr._entry.cache_clear()
+    _build.entry.cache_clear()
 
 
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing(no_kernel):
