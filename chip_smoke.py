@@ -32,38 +32,48 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    B = 1024, mixed B = 64, native3 B = 128 and 8), and the device time of
    one round from blocks that never converge (regular n = 4096 at B = 1
    and 1024, the native3 rung at B = 1);
-5. the PA FFT's integer margin at the production shape (< 0.25);
-5b. threefry: each entry point of ``qtpu_torch/csrc/threefry.cu`` == its
-   plain PyTorch version (``qtpu_torch.random``'s ``*_plain``) bit for
-   bit on the card, at every rung of the production ladder (the PA seed,
-   B = 128 rows of P + l_max - 1 bits; the verify seed, P + 63 bits; the
-   puncture pad; the 128 test offsets in [0, P)), at retry_small's 8
-   index rows, at 4 shards' row0 offsets (their rows == the unsharded
-   draw's), at the shortening fill's draw (B = 128, one z = 2,048 column)
-   and on one 2^23-bit chunk of the bench's BSC stream (fold_in, split,
-   bits, uniform); at the production rung each draw's call time, the
-   device time of a CUDA-graph replay, the plain version's time and the
-   bound (bytes at 3.35 TB/s, or the cipher's shifts and xors on the
-   64-lane INT32 pipe with its adds free to issue on the FMA pipe), and no
-   library call (no PyTorch call computes threefry2x32);
+5. the PA FFT's integer margin at the production shape (< 0.25), and
+   the hash's call and device time there beside its bound (bytes at 3.35
+   TB/s, or the FFTs' operations at 67 TFLOP/s of float32);
+5b. threefry: both entry points of ``qtpu_torch/csrc/threefry.cu`` == their
+   plain PyTorch versions (``qtpu_torch.random``'s ``*_plain``) bit for
+   bit on the card: the draw table, one launch a table, with each draw
+   alone at every rung of the production ladder (the PA seed, B = 128
+   rows of P + l_max - 1 bits; the verify seed, P + 63 bits; the puncture
+   pad; the 128 test offsets in [0, P)) and the tables Alice's and Bob's
+   programs make there (and Alice's and retry_small's with a shortening
+   fill), at retry_small's 8 index rows, at 4 shards' row0 offsets (their
+   rows == the unsharded draw's), at the shortening fill's draw (B = 128,
+   one z = 2,048 column); the hash on one 2^23-bit chunk of the bench's
+   BSC stream (fold_in, split, bits, uniform); at the production rung each
+   draw's and table's call time, the device time of a CUDA-graph replay,
+   the plain version's time and the bound (bytes at 3.35 TB/s, or the
+   cipher's shifts and xors on the 64-lane INT32 pipe with its adds free
+   to issue on the FMA pipe), and no library call (no PyTorch call
+   computes threefry2x32);
 5c. window kernels: ``qtpu_torch/csrc/qc_encode.cu`` (the syndrome
    encoder reading the codeword's payload, fill and pad parts) and both
    entry points of ``qtpu_torch/csrc/pin_llr.cu`` (Bob's pins, mismatch
    count and LLR; the retries' LLR) == their plain PyTorch versions bit
    for bit (LLRs by their float32 bit patterns) at every production rung
    (B = 128, the full-B retry), at 4 shards' rows (b = 32, == the
-   unsharded call's rows), at retry_small's 1 and 8 rows and at every rung
-   of the n = 4096 mixed ladder (B = 1024); at the rung a 3% prior selects
-   each one's call time, the device time of a CUDA-graph replay, the plain
-   version's time and the bound (bytes at 3.35 TB/s, or its 32-bit
-   operations at the SM's issue rate), and no library call;
+   unsharded call's rows), at retry_small's 1 and 8 rows, at every rung
+   of the n = 4096 mixed ladder (B = 1024) and with every input one byte
+   off alignment (pin_llr at B = 128, llr at 8 rows: two aligned loads a
+   run), and at z = 24 and 10 (no ladder's: the byte body), aligned and
+   one byte off;
+   at the rung a 3% prior selects each one's call time, the device time
+   of a CUDA-graph replay, the plain version's time and the bound (bytes
+   at 3.35 TB/s, or its 32-bit operations at the SM's issue rate), and no
+   library call;
 6. session: production_config(), Alice and Bob on this card over a direct
    link, fed a BSC(3%) stream generated on the card, for 20 windows —
    identical non-empty keys, equal ledgers, FER <= 0.05, a rung switch, a
    retry round, and the layered kernel launched by the session (its
    launches per window and their batch sizes printed); the threefry
-   kernel's seed-row and offset entry points launched (per window
-   printed), and no plain int64 threefry op and no key fill run; the
+   kernel launched once a draw table, at most 4 tables a window (Alice's,
+   Bob's, each party's PA) and one a retry round (per window printed),
+   and no plain int64 threefry op and no key fill run; the
    encoder, pin_llr and the retries' llr launched (per window printed),
    and no plain encoder or pin/LLR assembly run;
 7. min-sum session: n = 4096 mixed ladder, flooding decoder, B = 1024, the
@@ -123,7 +133,7 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     are clean, the two-party FER <= 0.05, every decode-alone block
     converged, the measured copy bandwidth is below 1.05 x 3,350 GB/s, and
     its ``bench launches`` line shows the layered kernel launched by every
-    measurement and the threefry kernel's three entry points and pin_llr
+    measurement and the threefry kernel's two entry points and pin_llr
     by both parties' and Bob's sessions (the BSC stream, the window
     programs), the encoder by both parties'; the bound of its decode-alone
     call, from the iterations
@@ -150,8 +160,8 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     (>= 6 timed windows, a busy share in (0, 1], fewer launches a window
     than PR 9's tree's 648.3, printed beside it, no int64 elementwise
     kernel and no ``roll`` launched once a window or more among the top
-    kernels, which are printed).  The kernels line gains each kernel's launches on these
-    paths.
+    kernels, which are printed).  The kernels line gains each kernel's
+    launches on these paths.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -539,13 +549,53 @@ def prior_rung(cfg, dev) -> int:
     return prior._choose()[1]
 
 
+# The card's float32 rate outside the tensor cores (NVIDIA's data sheet).
+FP32_FLOPS = 67e12
+
+
+def toeplitz_bound(B, n, m):
+    """The least time the card could take for the per-block PA hash of B
+    blocks, (B, n) x (B, m + n - 1) -> (B, m) bits, as pa.py computes it
+    (a real FFT of length L of both, their product, an inverse real FFT):
+    (ms, "bytes" or "operations", L, operations).  Bytes: the two inputs
+    read and the output written once, a byte a bit.  Operations: 2.5 L
+    log2 L a real FFT of length L (half a complex one's 5 L log2 L), three
+    of them, and 6 a product of the L / 2 + 1 complex bins, at the float32
+    rate."""
+    L = 1 << (m + n - 2).bit_length()
+    flops = B * (3 * 2.5 * L * (L.bit_length() - 1) + 6 * (L // 2 + 1))
+    t_bytes = B * ((m + n - 1) + n + m) / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), L, flops
+
+
+def draw_cost(d):
+    """(bytes, (shift and logic ops, adds)) of one draw of a table: the
+    least cipher work is the tag chain once (each tag one call on a new
+    key), each row's fold once on the tagged key, then each word (seed
+    rows: W a row on the row's key) or each row's randint (split into two
+    keys, one word from each; its remainder's few multiply-adds are not
+    counted); an index of rows is read once."""
+    from qtpu_torch import random as tr
+    b, nt = len(d.rows), len(d.tags)
+    index = 0 if isinstance(d.rows, range) else 8 * b
+    if isinstance(d, tr.SeedRows):
+        W = -(-d.length // 32)
+        return (b * d.length + index,
+                cipher_ops(nt + b + b * W, nt + 1 + b, b * W))
+    return 8 * b + index, cipher_ops(nt + 5 * b, nt + 1 + 3 * b, 2 * b)
+
+
 def threefry_phase(dev, cfg, ladder, probe) -> dict:
-    """Phase 5b: the threefry kernel's three entry points == their plain
+    """Phase 5b: the threefry kernel's two entry points == their plain
     versions on the card at the main path's shapes (``probe``: a
-    BobSession of ``cfg`` on ``ladder``); timed at the rung Bob's 3% prior
-    selects (as ``qtpu_torch.profiling programs``) and on the bench's
-    chunk.  Returns {entry point: Draw} of the timed draws that represent
-    each (the PA seed, the test offsets, the bench chunk's bits)."""
+    BobSession of ``cfg`` on ``ladder``): each draw alone (a one-draw
+    table) and every table a window program makes, one launch a table;
+    timed at the rung Bob's 3% prior selects (as ``qtpu_torch.profiling
+    programs``) and on the bench's chunk.  Returns {name: Draw} of the
+    timed draws that represent each use (the PA seed, the test offsets,
+    Alice's and Bob's tables, the bench chunk's bits)."""
     import numpy as np
     import torch
     from qtpu_torch import random as tr
@@ -557,29 +607,27 @@ def threefry_phase(dev, cfg, ladder, probe) -> dict:
                          .astype(np.uint32) for _ in range(3))
     B, Vh = cfg.blocks_per_window, cfg.verify_hash_bits
 
-    # The least cipher work of a draw: the tag chain once (each tag one
-    # call on a new key), each row's fold once on the tagged key, then each
-    # word (seed rows: W a row on the row's key) or each row's randint
-    # (split into two keys, one word from each; its remainder's few
-    # multiply-adds are not counted).
-    def rows_draw(label, words, tags, rows, length, reps=0):
-        b, W = len(rows), -(-length // 32)
-        index = 0 if isinstance(rows, range) else 8 * b
+    def table_draw(label, table, reps=0):
+        """The table in one launch (launches + 1) == its plain draws."""
+        costs = [draw_cost(d) for d in table]
+        before = tr.launches["threefry_draws"]
+        tr.draws(table, dev)
+        assert tr.launches["threefry_draws"] == before + 1, label
         return hold_draw(
-            label, lambda: tr.seed_rows_at(words, tags, rows, length, dev),
-            lambda: tr.seed_rows_at_plain(words, tags, rows, length, dev),
-            b * length + index,
-            cipher_ops(len(tags) + b + b * W, len(tags) + 1 + b, b * W), reps)
+            label, lambda: tr.draws(table, dev),
+            lambda: tr.draws_plain(table, dev), sum(c[0] for c in costs),
+            tuple(sum(c[1][i] for c in costs) for i in (0, 1)), reps)
+
+    def rows_draw(label, words, tags, rows, length, reps=0):
+        return table_draw(label, [tr.SeedRows(words, tags, rows, length)],
+                          reps)
 
     def offsets_draw(label, rows, span, reps=0):
-        b = len(rows)
-        index = 0 if isinstance(rows, range) else 8 * b
-        return hold_draw(
-            label, lambda: tr.randint_at(wkey, (TAG_TOFF,), rows, span, dev),
-            lambda: tr.randint_at_plain(wkey, (TAG_TOFF,), rows, span, dev),
-            8 * b + index, cipher_ops(1 + 5 * b, 2 + 3 * b, 2 * b), reps)
+        return table_draw(label, [tr.Randint(wkey, (TAG_TOFF,), rows, span)],
+                          reps)
 
     out, shapes = {}, []
+    idx = torch.from_numpy(np.sort(rng.choice(B, 8, replace=False))).to(dev)
     for r, st in enumerate(ladder.steps):
         P, l_max = probe.payload_per_block(r), probe.programs(r).l_max
         z = st.code.z
@@ -590,7 +638,7 @@ def threefry_phase(dev, cfg, ladder, probe) -> dict:
             d = rows_draw(f"PA seed {name} B={B}", pakey, (), range(B),
                           P + l_max - 1, reps)
             if r == rung:
-                out["seed_rows"] = d
+                out["pa_seed"] = d
         rows_draw(f"verify seed {name}", wkey, (TAG_VERIFY,), range(1),
                   P + Vh - 1, reps)
         if pad:
@@ -598,7 +646,24 @@ def threefry_phase(dev, cfg, ladder, probe) -> dict:
                       reps)
         d = offsets_draw(f"test offsets {name} B={B}", range(B), P, reps)
         if r == rung:
-            out["randint"] = d
+            out["offsets"] = d
+        # The programs' tables, and Alice's and retry_small's with a
+        # shortening fill of one z column (no rung of this ladder shortens,
+        # so its programs draw none).
+        verify = tr.SeedRows(wkey, (TAG_VERIFY,), range(1), P + Vh - 1)
+        offsets = tr.Randint(wkey, (TAG_TOFF,), range(B), P)
+        fill = tr.SeedRows(wkey, (TAG_SHORTFILL,), range(B), z)
+        alice = ([tr.SeedRows(pkey, (), range(B), pad)] if pad else []) \
+            + [verify, offsets]
+        d = table_draw(f"alice table {name}", alice, reps)
+        if r == rung:
+            out["alice_table"] = d
+        d = table_draw(f"bob table {name}", [offsets, verify], reps)
+        if r == rung:
+            out["bob_table"] = d
+        table_draw(f"alice table with a fill {name}", alice + [fill])
+        table_draw(f"retry_small table with a fill {name}",
+                   [tr.SeedRows(wkey, (TAG_SHORTFILL,), idx, z), verify])
         shapes.append(f"r{r}: PA {B}x{P + l_max - 1}, verify "
                       f"{P + Vh - 1}, pad {B}x{pad}, offsets {B} in [0, {P})")
     say("threefry: every rung of the production ladder == plain: "
@@ -607,7 +672,6 @@ def threefry_phase(dev, cfg, ladder, probe) -> dict:
     l_max = probe.programs(rung).l_max
     z = ladder.steps[rung].code.z
     # retry_small's failed rows, an index tensor on the card.
-    idx = torch.from_numpy(np.sort(rng.choice(B, 8, replace=False))).to(dev)
     rows_draw("retry_small 8 index rows, shortening fill", wkey,
               (TAG_SHORTFILL,), idx, z, reps=20)
     rows_draw("retry_small 8 index rows, PA length", pakey, (), idx,
@@ -684,7 +748,8 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
     4 shards' rows (b = 32, == the unsharded call's rows), retry_small's 1
     and 8 rows and the full-B retry, and every rung of the n = 4096 mixed
     ladder at B = 1024 (``ms_probe``).  Timed at the rung a 3% prior
-    selects.  Returns {"qc_encode", "pin_llr", "llr_8": Draw}."""
+    selects, and with every input one byte off alignment.  Returns
+    {"qc_encode", "pin_llr", "pin_llr_off", "llr_8": Draw}."""
     import numpy as np
     import torch
     from qtpu_torch import window_assembly as wa
@@ -781,6 +846,52 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
                         window_bound(n_bytes, 0), 20 if nrows == 8 else 0)
         if nrows == 8:
             out["llr_8"] = d
+    # Every input one byte off alignment: two aligned loads a run.
+    off = dict(pins, **{k: one_byte_off(pins[k])
+                        for k in ("rx", "short_alice", "test_alice")})
+    if off["fill"] is not None:
+        off["fill"] = one_byte_off(off["fill"])
+    out["pin_llr_off"] = hold_kernel(
+        "pin_llr", f"rung {rung} B={B}, every input one byte off "
+        f"alignment", lambda: wa.pin_llr(**off),
+        lambda: wa.pin_llr_plain(**off), out["pin_llr"][4:], 20)
+    sel = idx[:8]
+    off_args = (one_byte_off(rx_pin[sel]), one_byte_off(pin[sel]),
+                None if parts[1] is None else one_byte_off(parts[1][sel]),
+                pins["qmag"], layout)
+    hold_kernel("llr", "retry_small 8 rows one byte off alignment",
+                lambda: wa.llr(*off_args), lambda: wa.llr_plain(*off_args))
+    # z not a multiple of 16 (no ladder of the repo has one): the kernel's
+    # byte body, with every input aligned and one byte off.
+    for lay in (enc.ColumnLayout(8, 24, [0, 2, 3, 5, 6, 7], [1], [4]),
+                enc.ColumnLayout(24, 10, list(range(2, 24)), [0], [1])):
+        P = lay.widths[0] * lay.z
+        a = 5 if P % 5 else 7
+        boff_t = torch.randint(0, P, (B,), generator=g, device=dev)
+        zin = dict(rx=bits(B, P), short_alice=bits(B, 96),
+                   test_alice=bits(B, 16), boff_t=boff_t,
+                   affine=(a, pow(a, -1, P), (a * 96 + int(boff_t[0])) % P),
+                   s=48, k=8, s_max=96, fill=bits(B, lay.widths[1] * lay.z),
+                   qmag=pins["qmag"], layout=lay)
+        for moved in (False, True):
+            args = dict(zin, **{k: one_byte_off(zin[k]) for k in
+                                ("rx", "short_alice", "test_alice", "fill")
+                                if moved})
+            label = f"z={lay.z} B={B}" + (", one byte off" if moved else "")
+            hold_kernel("pin_llr", label, lambda: wa.pin_llr(**args),
+                        lambda: wa.pin_llr_plain(**args))
+            zpin, zmask = wa.pin_llr(**args)[:2]
+            zmask = zmask | (torch.rand(zmask.shape, generator=g,
+                                        device=dev) < 0.05)
+            if moved:
+                zpin, zmask = one_byte_off(zpin), one_byte_off(zmask)
+            hold_kernel("llr", label,
+                        lambda: wa.llr(zpin, zmask, args["fill"],
+                                       args["qmag"], lay),
+                        lambda: wa.llr_plain(zpin, zmask, args["fill"],
+                                             args["qmag"], lay))
+    say(f"window kernels: z = 24 and 10 (the byte body) at B={B}, aligned "
+        f"and one byte off == plain (pin_llr, llr)")
     # The n = 4096 mixed ladder at B = 1024 (min-sum sessions, the chain).
     mB = ms_probe.config.blocks_per_window
     for r, st in enumerate(ms_probe.ladder.steps):
@@ -788,6 +899,15 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
     say(f"window kernels: every rung of the n = 4096 mixed ladder at "
         f"B={mB} == plain")
     return out
+
+
+def one_byte_off(t):
+    """A contiguous copy of ``t`` whose storage starts one byte past an
+    aligned address."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
 
 
 def window_kernel_launches(launches: dict) -> tuple[int, int]:
@@ -1373,7 +1493,7 @@ def two_process_phase(dev, timeout):
         assert o["launches"]["bp_layered"] == MESH_SHARDS // 2, o["launches"]
     launches = sum(o["launches"]["bp_layered"] for o in outs)
     threefry = sum(threefry_launches(o["launches"]) for o in outs)
-    assert all(o["launches"]["threefry_randint"] > 0 for o in outs), outs
+    assert all(o["launches"]["threefry_draws"] > 0 for o in outs), outs
     assert all(o["launches"]["pin_llr"] == MESH_SHARDS // 2
                for o in outs), outs
     window = tuple(map(sum, zip(*(window_kernel_launches(o["launches"])
@@ -1415,8 +1535,7 @@ def bench_phase(timeout, code, decode):
     for name, counts in launches.items():
         assert counts["bp_layered"] > 0, f"bench {name}: no bp_layered"
     for name in ("full_chain", "per_chip"):
-        for entry in ("threefry_seed_rows", "threefry_randint",
-                      "threefry_hash", "pin_llr"):
+        for entry in ("threefry_draws", "threefry_hash", "pin_llr"):
             assert launches[name][entry] > 0, f"bench {name}: no {entry}"
     assert launches["full_chain"]["qc_encode"] > 0, launches["full_chain"]
     bound_ms, bound_by = decode_bound(code, x["decode_blocks"],
@@ -1520,7 +1639,7 @@ def baseline_phase(dev) -> dict:
         devices=[dev] * baseline.CONFIG5_SHARDS))
     assert json.loads(c5["global_ledger"]) == one, (c5, one)
     assert c5["launches"] == {"bp_layered": 0, "bp_flooding": 8}, c5
-    assert c5["threefry_launches"]["threefry_randint"] > 0, c5
+    assert c5["threefry_launches"]["threefry_draws"] > 0, c5
     cpu = torch.device("cpu")
     on_cpu = baseline.config5_window(cpu, make_mesh(
         devices=[cpu] * baseline.CONFIG5_SHARDS))
@@ -1534,7 +1653,7 @@ def baseline_phase(dev) -> dict:
         assert r["final_bits"] == r["key_bits"], r
         assert r["qber"] > 0.05 or r["key_bits"] > 0, r
     assert ef["launches"]["bp_layered"] > 0, ef
-    assert ef["threefry_launches"]["threefry_seed_rows"] > 0, ef
+    assert ef["threefry_launches"]["threefry_draws"] > 0, ef
     efficiency_ladder_holds(dev)
     return {name: {**out["launches"], **out["threefry_launches"]}
             for name, out in (("config2", c2), ("config3", c3),
@@ -1593,6 +1712,9 @@ ROLL_OP = r"roll_cuda_kernel"
 PROGRAM_LAUNCH_LIMITS = {"alice_program": 40, "bob_program": 40,
                          "retry_small": 40}
 PARENT_LAUNCHES_PER_WINDOW = 648.3
+# Threefry launches a production window outside its retry rounds: one
+# draw table a program call that draws (Alice's, Bob's, each party's PA).
+THREEFRY_PER_WINDOW = 4
 
 
 def profiling_phase() -> dict:
@@ -1664,7 +1786,7 @@ def main() -> int:
     from qtpu_torch.ldpc import encode as enc
     from qtpu_torch.ldpc.codes import make_rate_ladder, make_regular_code
     from qtpu_torch.pipeline import PipelineConfig, production_config
-    from qtpu_torch.pa import toeplitz_margin
+    from qtpu_torch.pa import _toeplitz_hash, toeplitz_margin
 
     assert "jax" not in sys.modules
     dev = torch.device("cuda", 0)
@@ -1817,6 +1939,14 @@ def main() -> int:
     margin = toeplitz_margin(tb, xb, l_max)
     assert margin < 0.25, f"PA FFT integer margin {margin} >= 0.25"
     say(f"pa: B=128 P=61440 l_max={l_max} integer margin {margin:.4f} < 0.25")
+    fft_ms = time_cuda(lambda: _toeplitz_hash(tb, xb, l_max), 10)
+    fft_dev = graph_ms(lambda: _toeplitz_hash(tb, xb, l_max), 10)
+    fft_bound, fft_by, fft_len, fft_flops = toeplitz_bound(128, 61440, l_max)
+    say(f"pa fft (cuFFT, qtpu_torch.pa._toeplitz_hash): B=128 n=61440 "
+        f"m={l_max}, FFT length {fft_len}, {fft_flops / 1e9:.3f} GFLOP "
+        f"counted; kernel_ms={fft_ms:.4f} device_ms={fft_dev:.4f} "
+        f"bound_ms={fft_bound:.4f} ({fft_by}) share_of_bound "
+        f"{fft_bound / fft_dev:.4f} (device)")
 
     # 5b. the threefry kernel vs its plain versions
     draws = threefry_phase(dev, cfg, ladder, probe)
@@ -1834,10 +1964,12 @@ def main() -> int:
         dev, (SESSION_WINDOWS + 4) * cfg.n * cfg.blocks_per_window, 7)
     reset_launches()
     plain_calls = collections.Counter()
+    # The session's draw tables and retry rounds.
+    made = collections.Counter()
 
-    def counted(name, fn):
+    def counted(name, fn, into=plain_calls):
         def call(*args, **kwargs):
-            plain_calls[name] += 1
+            into[name] += 1
             return fn(*args, **kwargs)
         return call
     # No plain (int64) threefry op, no key fill and no plain encoder or
@@ -1845,10 +1977,14 @@ def main() -> int:
     plain_fns = [(tr, "_threefry2x32"), (tr, "key_from_data"),
                  (enc, "encode_plain"), (enc, "encode_parts_plain"),
                  (wa, "pin_llr_plain"), (wa, "llr_plain")]
+    from qtpu_torch.pipeline import BobSession
     with contextlib.ExitStack() as patches:
         for owner, name in plain_fns:
             patches.enter_context(mock.patch.object(
                 owner, name, counted(name, getattr(owner, name))))
+        for owner, name in ((tr, "draws"), (BobSession, "_on_retry")):
+            patches.enter_context(mock.patch.object(
+                owner, name, counted(name, getattr(owner, name), made)))
         alice, bob, timed = run_session(cfg, a_src, b_src, dev,
                                         SESSION_WINDOWS, feed_chunk=1 << 23)
     prod = read_launches()
@@ -1861,11 +1997,17 @@ def main() -> int:
     say(f"session layered launches: {prod['bp_layered']} over {len(mets)} "
         f"windows = {per_window:.3f} per window; launches by batch size "
         f"{dict(sorted(prod_batches.items()))}")
-    for name in ("threefry_seed_rows", "threefry_randint"):
-        assert prod[name] > 0, f"session never launched {name}"
+    assert prod["threefry_draws"] > 0, "session never launched threefry"
     tf_per_window = threefry_launches(prod) / len(mets)
+    # One launch a draw table, one table a program call that draws:
+    # Alice's, Bob's and both parties' PA in a window, and each retry's.
+    tf_limit = THREEFRY_PER_WINDOW * len(mets) + made["_on_retry"]
+    assert prod["threefry_draws"] == made["draws"], (prod, made)
+    assert threefry_launches(prod) <= tf_limit, (prod, made, len(mets))
     say(f"session threefry launches: {threefry_launches(prod)} over "
-        f"{len(mets)} windows = {tf_per_window:.3f} per window ("
+        f"{len(mets)} windows = {tf_per_window:.3f} per window (<= "
+        f"{THREEFRY_PER_WINDOW} a window + {made['_on_retry']} retry "
+        f"rounds = {tf_limit}; {made['draws']} draw tables; "
         + ", ".join(f"{k} {prod[k] / len(mets):.3f}" for k in tr.launches)
         + "); no plain threefry op, no key fill")
     wk_per_window = check_window_kernels("session", prod, len(mets),
@@ -2064,7 +2206,7 @@ def main() -> int:
         "mesh_session": mesh_launches,
         "mesh_stream_pa_session": mst_launches,
         **{f"bench_{k}": v for k, v in bench_launches.items()}, **measured}
-    seed, offsets, chunk = draws["seed_rows"], draws["randint"], draws["hash"]
+    seed, offsets, chunk = draws["pa_seed"], draws["offsets"], draws["hash"]
     encoder, pins, llr8 = (assembled["qc_encode"], assembled["pin_llr"],
                            assembled["llr_8"])
     wk_paths = {name: window_kernel_launches(counts)
@@ -2132,11 +2274,13 @@ def main() -> int:
         "plain_ms": round(seed.plain_ms, 2),
         "bound_ms": round(seed.bound_ms, 5), "bound_by": seed.bound_by,
         "library_ms": None,
-        "timed": "seed_rows: the PA seed at the production rung",
+        "timed": "draws: the PA seed at the production rung",
         **{f"{f}_{entry}": float(f"{getattr(d, f):.4g}")
-           for entry, d in (("randint", offsets), ("hash", chunk))
+           for entry, d in (("offsets", offsets), ("hash", chunk),
+                            ("alice_table", draws["alice_table"]),
+                            ("bob_table", draws["bob_table"]))
            for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
-        "bound_by_randint": offsets.bound_by,
+        "bound_by_offsets": offsets.bound_by,
         "bound_by_hash": chunk.bound_by}, {
         "name": "qc_encode", "route": "cuda",
         "source": "qtpu_torch/csrc/qc_encode.cu",
@@ -2171,6 +2315,8 @@ def main() -> int:
         "library_ms": None,
         "timed": "pin_llr: Bob's first decode at the rung a 3% prior "
                  "selects, B = 128",
+        "device_ms_inputs_off_alignment":
+            round(assembled["pin_llr_off"].device_ms, 4),
         **{f"{f}_llr_8_rows": float(f"{getattr(llr8, f):.4g}")
            for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
         "bound_by_llr_8_rows": llr8.bound_by}]}))

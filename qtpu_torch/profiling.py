@@ -16,8 +16,8 @@ key, the reference's number: ms a call over REPS back-to-back calls and
 one synchronize.  On the TPU that was device time; with eager ops on a
 card it is mostly the host's dispatch, so on a card each entry also gets
 ``device_ms`` (the summed kernel time a call in a torch.profiler trace of
-REPS more calls, after one the trace leaves out) and ``launches`` (CUDA
-kernels a call in that trace), and
+REPS more calls, after 5 ms of calls the trace leaves out) and
+``launches`` (CUDA kernels a call in that trace), and
 ``bp_launches`` counts the BP kernels' own launches a call; ``host``
 is ``bench._host``'s probe, as in ``chain``.  No program reads a device
 result on the host (their indices come from host arrays), so the call ms
@@ -183,15 +183,26 @@ def _call_ms(dev, fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+# Host seconds a trace runs the program before its region: the profiler
+# can miss the kernels of a session that has barely started, which a
+# program of a few short kernels may otherwise be.
+TRACE_LEAD_S = 0.005
+
+
 def _measure(dev, fn, reps: int) -> dict:
-    """``_call_ms``, then a trace of one more call and ``reps`` calls in a
-    region: device ms and CUDA kernel launches a call in the region (None
-    on the CPU), and the BP kernels' launches a call."""
+    """``_call_ms``, then a trace of calls for ``TRACE_LEAD_S`` (at least
+    one) and ``reps`` calls in a region: device ms and CUDA kernel
+    launches a call in the region (None on the CPU), and the BP kernels'
+    launches a call."""
     from qtpu_torch.bench import _sync
     ms = _call_ms(dev, fn, reps)
     with device_trace(dev) as tr:
+        t0 = time.perf_counter()
         fn()
         _sync(dev)
+        while tr.tracing and time.perf_counter() - t0 < TRACE_LEAD_S:
+            fn()
+            _sync(dev)
         before = dict(cuda_bp.launches)
         with tr.region("calls"):
             for _ in range(reps):

@@ -24,25 +24,30 @@ operation masked back to 32 bits, as PyTorch covers uint32 arithmetic only
 partly).  On a CUDA tensor it launches the hand-written kernel
 ``qtpu_torch/csrc/threefry.cu`` (built at first use by
 ``qtpu_torch._build``, bound with ctypes) or raises; ``launches`` counts
-each of its three entry points' launches.  The plain versions run on any
+each of its two entry points' launches.  The plain versions run on any
 device and are the kernel's oracle.
 
-The window programs draw through the two fused calls, whose key words come
-from the host (no device key tensor, no fill): ``seed_rows_at`` (LSB-first
-bit rows of ``bits(fold_in(... fold_in(key, tag) ..., row), W)``, one
-launch) and ``randint_at`` (``randint`` on the same row keys, one launch).
+The window programs draw through a table of fused draws, whose key words
+come from the host (no device key tensor, no fill): ``draws`` takes up to
+``MAX_DRAWS`` of them, each ``SeedRows`` (LSB-first bit rows of
+``bits(fold_in(... fold_in(key, tag) ..., row), W)``) or ``Randint``
+(``randint`` on the same row keys), and makes all of them in one launch;
+a program passes every draw it needs in one table.  ``seed_rows_at`` and
+``randint_at`` are its one-draw tables.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 __all__ = ["key_from_data", "fold_in", "split", "bits32", "uniform",
-           "seed_rows_at", "randint_at",
-           "fold_in_plain", "split_plain", "bits32_plain",
-           "seed_rows_at_plain", "randint_at_plain", "launches", "LIBRARY"]
+           "SeedRows", "Randint", "draws", "seed_rows_at", "randint_at",
+           "fold_in_plain", "split_plain", "bits32_plain", "draws_plain",
+           "seed_rows_at_plain", "randint_at_plain", "launches", "LIBRARY",
+           "MAX_DRAWS"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -50,21 +55,49 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # The kernel library (qtpu_torch/csrc/threefry.cu) and the launches of each
 # of its entry points since import (or since a caller reset them).
 LIBRARY = "threefry"
-launches = {"threefry_seed_rows": 0, "threefry_randint": 0,
-            "threefry_hash": 0}
+launches = {"threefry_draws": 0, "threefry_hash": 0}
+
+# The most draws one table (one launch) takes: csrc/threefry.cu's kMaxDraws.
+MAX_DRAWS = 8
 
 _U32, _INT, _LL, _PTR = (ctypes.c_uint32, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_void_p)
 _ARGTYPES = {
-    # key words, tag count, two tags, rows, row0, b, length, out; stream
-    "threefry_seed_rows": [_U32, _U32, _INT, _U32, _U32, _PTR, _U32, _INT,
-                           _LL, _PTR, _PTR],
-    # key words, tag count, two tags, rows, row0, b, span, out; stream
-    "threefry_randint": [_U32, _U32, _INT, _U32, _U32, _PTR, _U32, _INT,
-                         _U32, _PTR, _PTR],
+    # the table (host array of _DrawEntry), its length; stream
+    "threefry_draws": [_PTR, _INT, _PTR],
     # keys, K, counts, count0, W, pair, out; stream
     "threefry_hash": [_PTR, _LL, _PTR, _U32, _LL, _INT, _PTR, _PTR],
 }
+
+
+class _DrawEntry(ctypes.Structure):
+    """One draw of a table: csrc/threefry.cu's ``QtpuDraw``, field for
+    field."""
+    _fields_ = [("kind", ctypes.c_int32), ("ntags", ctypes.c_int32),
+                ("key", _U32 * 2), ("tag", _U32 * 2), ("rows", _PTR),
+                ("row0", _U32), ("b", ctypes.c_int32), ("size", _LL),
+                ("out", _PTR)]
+
+
+_SEED_ROWS, _RANDINT = 0, 1     # QtpuDraw's kinds
+
+
+class SeedRows(NamedTuple):
+    """A draw of (b, length) uint8 protocol bits (``seed_rows_at``'s
+    arguments)."""
+    key_words: object
+    tags: tuple
+    rows: object
+    length: int
+
+
+class Randint(NamedTuple):
+    """A draw of (b,) int64 offsets in [0, span) (``randint_at``'s
+    arguments)."""
+    key_words: object
+    tags: tuple
+    rows: object
+    span: int
 
 
 def key_from_data(data, device) -> torch.Tensor:
@@ -185,6 +218,13 @@ def randint_at_plain(key_words, tags, rows, span: int,
     return _randint_plain(keys, span)
 
 
+def draws_plain(table, device) -> list:
+    """``draws``' plain version, on any device: each draw by its own plain
+    function."""
+    return [seed_rows_at_plain(*d, device) if isinstance(d, SeedRows)
+            else randint_at_plain(*d, device) for d in table]
+
+
 # ---------------------------------------------------------------------------
 # The kernel's wrapper.
 
@@ -300,42 +340,62 @@ def uniform(key: torch.Tensor, width: int) -> torch.Tensor:
     return mant.to(torch.int32).view(torch.float32) - 1.0
 
 
+def draws(table, device) -> list:
+    """Each draw of ``table`` (up to ``MAX_DRAWS`` ``SeedRows`` and
+    ``Randint``, whose ``rows`` are a ``range`` of step 1 or a CUDA int64
+    (b,) index on ``device``): the list of their outputs, each as
+    ``seed_rows_at`` or ``randint_at`` would return it.  One launch on a
+    card for the whole table."""
+    dev = torch.device(device)
+    if not _on_card(dev):
+        return draws_plain(table, dev)
+    if len(table) > MAX_DRAWS:
+        raise ValueError(f"at most {MAX_DRAWS} draws a table, got "
+                         f"{len(table)}")
+    args = []
+    for d in table:
+        if not isinstance(d, (SeedRows, Randint)):
+            raise ValueError(f"a draw is a SeedRows or a Randint, not {d!r}")
+        seed = isinstance(d, SeedRows)
+        size = int(d.length) if seed else int(d.span)
+        if not seed and not 0 < size < 1 << 32:
+            raise ValueError(f"span {size} outside (0, 2^32)")
+        args.append((seed, size, *_row_args(d.key_words, d.tags, d.rows,
+                                            dev)))
+    _entry("threefry_draws")
+    outs, entries = [], []
+    for seed, size, k0, k1, nt, t0, t1, idx, row0, b, ddev in args:
+        out = torch.empty((b, size) if seed else (b,),
+                          dtype=torch.uint8 if seed else torch.int64,
+                          device=ddev)
+        if outs and out.device != outs[0].device:
+            raise ValueError(f"draws on {outs[0].device} and {out.device} "
+                             f"in one table")
+        outs.append(out)
+        if out.numel():
+            entries.append(_DrawEntry(
+                _SEED_ROWS if seed else _RANDINT, nt, (k0, k1), (t0, t1),
+                None if idx is None else idx.data_ptr(), row0, b, size,
+                out.data_ptr()))
+    if entries:
+        arr = (_DrawEntry * len(entries))(*entries)
+        _launch("threefry_draws", outs[0].device, ctypes.addressof(arr),
+                len(entries))
+    return outs
+
+
 def seed_rows_at(key_words, tags, rows, length: int, device) -> torch.Tensor:
     """(b, length) uint8 protocol bits: row i is the LSB-first bit expansion
     of ``bits(fold_in(... fold_in(key, tags[0]) ..., row_i), W)``,
     W = ceil(length / 32), for the key of uint32 words ``key_words`` (host
     values) and 0-2 ``tags``.  ``rows``: a ``range`` (row_i = rows[i], the
-    global block index) or a CUDA int64 (b,) index tensor.  One launch on a
-    card."""
-    dev = torch.device(device)
-    if not _on_card(dev):
-        return seed_rows_at_plain(key_words, tags, rows, length, dev)
-    k0, k1, nt, t0, t1, idx, row0, b, dev = _row_args(key_words, tags, rows,
-                                                      dev)
-    _entry("threefry_seed_rows")
-    out = torch.empty((b, length), dtype=torch.uint8, device=dev)
-    if b and length:
-        _launch("threefry_seed_rows", out.device, k0, k1, nt, t0, t1,
-                None if idx is None else idx.data_ptr(), row0, b, length,
-                out.data_ptr())
-    return out
+    global block index) or a CUDA int64 (b,) index tensor.  A one-draw
+    table: one launch on a card."""
+    return draws([SeedRows(key_words, tags, rows, length)], device)[0]
 
 
 def randint_at(key_words, tags, rows, span: int, device) -> torch.Tensor:
     """(b,) int64 draws of ``jax.random.randint(k_i, (), 0, span, uint32)``
-    on the row keys of ``seed_rows_at`` (same arguments).  One launch on a
-    card."""
-    dev = torch.device(device)
-    if not _on_card(dev):
-        return randint_at_plain(key_words, tags, rows, span, dev)
-    if not 0 < span < 1 << 32:
-        raise ValueError(f"span {span} outside (0, 2^32)")
-    k0, k1, nt, t0, t1, idx, row0, b, dev = _row_args(key_words, tags, rows,
-                                                      dev)
-    _entry("threefry_randint")
-    out = torch.empty((b,), dtype=torch.int64, device=dev)
-    if b:
-        _launch("threefry_randint", out.device, k0, k1, nt, t0, t1,
-                None if idx is None else idx.data_ptr(), row0, b, span,
-                out.data_ptr())
-    return out
+    on the row keys of ``seed_rows_at`` (same arguments).  A one-draw
+    table: one launch on a card."""
+    return draws([Randint(key_words, tags, rows, span)], device)[0]

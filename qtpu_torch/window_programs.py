@@ -5,9 +5,10 @@ constant B*P bits of the device stream; the programs frame, encode, pin
 disclosures, assemble LLRs, decode, verify and privacy-amplify on the
 stream's device, with the same protocol randomness as the
 reference (threefry2x32 from ``qtpu_torch.random``, folded by GLOBAL block
-index; on a card each draw is one launch of its kernel, with the key words
-read from the host header), so a window's syndromes, hashes, disclosures,
-decoded payload, stats and PA rows equal the reference's bit for bit.
+index; each program makes all of its draws in one table, one launch of
+the kernel on a card, with the key words read from the host header), so a
+window's syndromes, hashes, disclosures, decoded payload, stats and PA
+rows equal the reference's bit for bit.
 
 Programs per ladder rung (the adaptive disclosure sizes s and k are header
 values):
@@ -182,31 +183,41 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         off = int(header[0]) + row0 * P
         return arena[off:off + b * P].to(dev, copy=True).reshape(b, P)
 
-    def _test_offsets(header, rows, dev):
-        """(b,) per-block offsets of the test family of disclosure
+    # A program's draws (``qtpu_torch.random``), all made in one table.
+    def _test_offsets(header, rows):
+        """The (b,) per-block offsets of the test family of disclosure
         positions (``window_assembly.disclosure_positions``)."""
-        return tr.randint_at(header[2:4], (TAG_TOFF,), rows, P, dev)
+        return tr.Randint(header[2:4], (TAG_TOFF,), rows, P)
 
-    def _vmatrix(header, dev):
-        """(Vh, P) float32 Toeplitz verification matrix from one window-
-        level seed: row j is t[j : j + P]."""
-        t = tr.seed_rows_at(header[2:4], (TAG_VERIFY,), range(1),
-                            P + Vh - 1, dev)[0]
-        return t.unfold(0, P, 1).to(torch.float32)
+    def _verify_seed(header):
+        """The window-level (1, P + Vh - 1) verify seed."""
+        return tr.SeedRows(header[2:4], (TAG_VERIFY,), range(1), P + Vh - 1)
+
+    def _shortfill(header, rows):
+        """The (b, Ns·z) shortening-fill bits of the shortened columns, or
+        None where the rung has none."""
+        if not short_cols.size:
+            return None
+        return tr.SeedRows(header[2:4], (TAG_SHORTFILL,), rows,
+                           int(short_cols.size) * z)
+
+    def _draw(dev, *table):
+        """The outputs of ``table``'s draws (None for a None entry), from
+        one ``tr.draws`` call (none without a draw)."""
+        live = [d for d in table if d is not None]
+        made = iter(tr.draws(live, dev) if live else ())
+        return [None if d is None else next(made) for d in table]
+
+    def _vmatrix(seed):
+        """(Vh, P) float32 Toeplitz verification matrix from the verify
+        seed: row j is t[j : j + P]."""
+        return seed[0].unfold(0, P, 1).to(torch.float32)
 
     def _verify_hash(t_mat, x_bits):
         """(b, P) x (P, Vh) -> (b, Vh) GF(2) Toeplitz hash."""
         _check_exact_matmul(x_bits)
         acc = x_bits.to(torch.float32) @ t_mat.T
         return (acc.to(torch.int32) & 1).to(torch.uint8)
-
-    def _shortfill(header, rows, dev):
-        """(b, Ns·z) shortening-fill bits of the shortened columns, or None
-        where the rung has none."""
-        if not short_cols.size:
-            return None
-        return tr.seed_rows_at(header[2:4], (TAG_SHORTFILL,), rows,
-                               int(short_cols.size) * z, dev)
 
     def _extract_payload(x_bits, dev):
         b = x_bits.shape[0]
@@ -218,28 +229,29 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
     def alice_program(arena, header):
         rows = range(B)
         payload = _frame(arena, header, B, 0, device)
-        if punct_cols.size:
-            punct = tr.seed_rows_at(header[4:6], (), rows,
-                                    int(punct_cols.size) * z, device)
-        else:
-            punct = None
+        pad = (tr.SeedRows(header[4:6], (), rows, int(punct_cols.size) * z)
+               if punct_cols.size else None)
+        punct, fill, vseed, boff_t = _draw(
+            device, pad, _shortfill(header, rows), _verify_seed(header),
+            _test_offsets(header, rows))
         # The codeword's parts go to the encoder as they are: it reads each
         # base column from its part (no assembled codeword).
-        syn = encode(payload, _shortfill(header, rows, device), punct)
-        hashes = _verify_hash(_vmatrix(header, device), payload)
-        pos_s, pos_t = wa.disclosure_positions(
-            _affine(header), _test_offsets(header, rows, device), P, Sm, Kq)
+        syn = encode(payload, fill, punct)
+        hashes = _verify_hash(_vmatrix(vseed), payload)
+        pos_s, pos_t = wa.disclosure_positions(_affine(header), boff_t, P,
+                                               Sm, Kq)
         short_vals = payload[:, pos_s]                       # (B, Sm)
         test_vals = torch.gather(payload, 1, pos_t)          # (B, Kq)
         return payload, syn, hashes, test_vals, short_vals
 
-    def _decode_core(header, rx_orig, rx_pin, pinmask, llr, syndromes,
+    def _decode_core(vseed, rx_orig, rx_pin, pinmask, llr, syndromes,
                      exp_hashes, dev):
-        """Decode the assembled ``llr`` -> verify.  stats: (b,3) [ok,
-        iters, errs].  Shared by the first decode and the retry re-decode."""
+        """Decode the assembled ``llr`` -> verify against the verify seed
+        ``vseed``.  stats: (b,3) [ok, iters, errs].  Shared by the first
+        decode and the retry re-decode."""
         res = decoder(llr, syndromes.contiguous())
         hat = torch.where(pinmask, rx_pin, _extract_payload(res.bits, dev))
-        hashes = _verify_hash(_vmatrix(header, dev), hat)
+        hashes = _verify_hash(_vmatrix(vseed), hat)
         ok = (hashes == exp_hashes).all(dim=1) & res.converged
         errs = (hat ^ rx_orig).to(torch.int32).sum(dim=1, dtype=torch.int32)
         stats = torch.stack([ok.to(torch.int32),
@@ -253,15 +265,16 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         b = test_alice.shape[0]
         rows = range(row0, row0 + b)    # global block indices
         rx_orig = _frame(arena, header, b, row0, dev)
+        boff_t, fill, vseed = _draw(dev, _test_offsets(header, rows),
+                                    _shortfill(header, rows),
+                                    _verify_seed(header))
         # Pin disclosed positions to Alice's (true) values (disclosure
         # doubles as shortening), count the mismatches and assemble the
         # LLR: one pass (window_assembly).
         rx_pin, pinmask, mism, llr = wa.pin_llr(
-            rx_orig, short_alice, test_alice,
-            _test_offsets(header, rows, dev), _affine(header),
-            int(header[1]), int(header[6]), Sm,
-            _shortfill(header, rows, dev), qmag, layout)
-        hat, stats = _decode_core(header, rx_orig, rx_pin, pinmask, llr,
+            rx_orig, short_alice, test_alice, boff_t, _affine(header),
+            int(header[1]), int(header[6]), Sm, fill, qmag, layout)
+        hat, stats = _decode_core(vseed, rx_orig, rx_pin, pinmask, llr,
                                   syndromes, exp_hashes, dev)
         stats = torch.cat([stats, mism[:, None]], dim=1)
         return hat, rx_orig, rx_pin, pinmask, stats
@@ -333,9 +346,10 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         pin2 = pinmask.clone()
         pin2[:, pos] = True
         pin2 = torch.where(failed_b, pin2, pinmask)
-        llr = wa.llr(rx2, pin2, _shortfill(header, range(B), device), qmag,
-                     layout)
-        hat2, st2 = _decode_core(header, rx_orig, rx2, pin2, llr, syndromes,
+        fill, vseed = _draw(device, _shortfill(header, range(B)),
+                            _verify_seed(header))
+        llr = wa.llr(rx2, pin2, fill, qmag, layout)
+        hat2, st2 = _decode_core(vseed, rx_orig, rx2, pin2, llr, syndromes,
                                  exp_hashes, device)
         failed_b = failed_b[:, 0]
         ok = stats[:, 0].to(torch.bool) | (failed_b & st2[:, 0].to(torch.bool))
@@ -360,9 +374,10 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         rx2_rows[:, pos] = bits[sel]
         pin2_rows = pinmask[sel]
         pin2_rows[:, pos] = True
-        llr = wa.llr(rx2_rows, pin2_rows, _shortfill(header, sel, device),
-                     qmag, layout)
-        hat_r, st_r = _decode_core(header, rx_orig[sel], rx2_rows, pin2_rows,
+        fill, vseed = _draw(device, _shortfill(header, sel),
+                            _verify_seed(header))
+        llr = wa.llr(rx2_rows, pin2_rows, fill, qmag, layout)
+        hat_r, st_r = _decode_core(vseed, rx_orig[sel], rx2_rows, pin2_rows,
                                    llr, syndromes[sel], exp_hashes[sel],
                                    device)
         hat_m = hat.clone()

@@ -258,8 +258,7 @@ def test_cli_bench_cpu_prints_one_reference_line(monkeypatch, capsys,
     assert json.loads((tmp_path / "bench_last_run.json").read_text()) == out
     launches = json.loads(lines[-2].split("bench launches: ", 1)[1])
     assert launches == {"decode": {"bp_layered": 0, "bp_flooding": 0,
-                                   "threefry_seed_rows": 0,
-                                   "threefry_randint": 0,
+                                   "threefry_draws": 0,
                                    "threefry_hash": 0, "qc_encode": 0,
                                    "pin_llr": 0, "llr": 0}}
 

@@ -10,12 +10,14 @@ switched off):
 Tolerance: exact — each kernel against its plain PyTorch decoder (bits,
 iterations, converged; the layered kernel at every native3 rung of
 n = 65536, hence at every cluster size the production ladder uses), the
-threefry kernel's three entry points against the plain PyTorch versions
+threefry kernel's two entry points against the plain PyTorch versions
 of ``qtpu_torch.random`` (seed rows at the PA seed's, the verify seed's and
-the pad's lengths, offsets at the ladder's spans), the encoder and the
+the pad's lengths, offsets at the ladder's spans, every draw table of the
+production ladder's programs, one launch a table), the encoder and the
 pin/LLR kernels against their plain versions (every rung of the n = 1024
 and n = 4096 ladders, shortened and parallel-edge codes, unaligned parts;
-LLRs by their float32 bit patterns), a session on the card against the
+pin_llr and llr at z = 2,048, 64 and 16, B = 1 to 128, every input
+aligned or off alignment; LLRs by their float32 bit patterns), a session on the card against the
 same session on
 the CPU (final keys, ledgers, per-window metrics), the bench's BSC stream
 on the card against the CPU and its per-chip replay on the card, and the
@@ -386,10 +388,10 @@ def test_threefry_seed_rows_on_card_matches_plain(dev, tags, length):
     idx = torch.tensor([7, 0, 127, 2**32 - 1, 3], dtype=torch.int64,
                        device=dev)
     for rows in (range(128), range(96, 128), idx):
-        before = tr.launches["threefry_seed_rows"]
+        before = tr.launches["threefry_draws"]
         got = tr.seed_rows_at(words, tags, rows, length, dev)
         torch.cuda.synchronize()
-        assert tr.launches["threefry_seed_rows"] == before + 1
+        assert tr.launches["threefry_draws"] == before + 1
         assert got.is_cuda and torch.equal(
             got, tr.seed_rows_at_plain(words, tags, rows, length, dev))
 
@@ -401,12 +403,71 @@ def test_threefry_randint_on_card_matches_plain(dev, span):
     words = np.array([0xDEADBEEF, 0x0BADF00D], np.uint32)
     idx = torch.arange(0, 1024, 7, dtype=torch.int64, device=dev)
     for rows in (range(128), range(96, 128), idx):
-        before = tr.launches["threefry_randint"]
+        before = tr.launches["threefry_draws"]
         got = tr.randint_at(words, (4,), rows, span, dev)
         torch.cuda.synchronize()
-        assert tr.launches["threefry_randint"] == before + 1
+        assert tr.launches["threefry_draws"] == before + 1
         assert torch.equal(got, tr.randint_at_plain(words, (4,), rows, span,
                                                     dev))
+
+
+def _production_draw_tables(dev):
+    """(label, table) of every draw table the window programs make at each
+    rung of the production ladder (``chip_smoke.py`` phase 5b's shapes),
+    with the shortening fill of one z = 2,048 column, retry_small's 8
+    index rows, 4 shards' row ranges and tables of ragged lengths."""
+    from qtpu_torch import random as tr
+    from qtpu_torch.link import make_direct_pair
+    from qtpu_torch.pipeline import BobSession, production_config
+    cfg = production_config()
+    probe = BobSession(cfg, 0x5E55, make_direct_pair()[1], device="cpu")
+    rng = np.random.default_rng(57)
+    wkey, pkey, pakey = (rng.integers(0, 2**32, 2, dtype=np.uint64)
+                         .astype(np.uint32) for _ in range(3))
+    B, Vh, z = cfg.blocks_per_window, cfg.verify_hash_bits, 2048
+    idx = torch.from_numpy(np.sort(rng.choice(B, 8, replace=False))).to(dev)
+    out = []
+    for r, st in enumerate(probe.ladder.steps):
+        P, l_max = probe.payload_per_block(r), probe.programs(r).l_max
+        pad = len(st.punct_cols) * st.code.z
+        verify = tr.SeedRows(wkey, (3,), range(1), P + Vh - 1)
+        offsets = tr.Randint(wkey, (4,), range(B), P)
+        fill = tr.SeedRows(wkey, (5,), range(B), z)
+        alice = [tr.SeedRows(pkey, (), range(B), pad)] if pad else []
+        out += [(f"r{r} alice", alice + [fill, verify, offsets]),
+                (f"r{r} bob", [offsets, fill, verify]),
+                (f"r{r} retry", [fill, verify]),
+                (f"r{r} retry_small", [tr.SeedRows(wkey, (5,), idx, z),
+                                       verify]),
+                (f"r{r} pa", [tr.SeedRows(pakey, (), range(B),
+                                          P + l_max - 1)] if l_max else [])]
+        out += [(f"r{r} shard {g}",
+                 [tr.Randint(wkey, (4,), range(g * 32, g * 32 + 32), P),
+                  tr.SeedRows(wkey, (5,), range(g * 32, g * 32 + 32), z),
+                  verify]) for g in range(4)]
+    ragged = [tr.SeedRows(wkey, tags, range(3), length)
+              for tags, length in (((), 1), ((3,), 31), ((4, 5), 33),
+                                   ((), 94076), ((3,), 16421))]
+    out.append(("ragged", ragged + [tr.Randint(pkey, (), idx, 2**32 - 1),
+                                    tr.SeedRows(pkey, (1, 2), idx, 63551),
+                                    tr.Randint(wkey, (4,), range(5), 3)]))
+    return [(label, table) for label, table in out if table]
+
+
+def test_threefry_draw_tables_on_card_match_plain(dev):
+    """Every table of the window programs at the production ladder's
+    shapes: one launch a table, each draw bit for bit its plain version."""
+    from qtpu_torch import random as tr
+    for label, table in _production_draw_tables(dev):
+        before = dict(tr.launches)
+        got = tr.draws(table, dev)
+        torch.cuda.synchronize()
+        assert tr.launches == dict(
+            before, threefry_draws=before["threefry_draws"] + 1), label
+        for d, g, w in zip(table, got, tr.draws_plain(table, dev),
+                           strict=True):
+            assert g.is_cuda and g.dtype == w.dtype and torch.equal(g, w), \
+                (label, d)
 
 
 def test_threefry_hash_on_card_matches_plain(dev):
@@ -565,6 +626,67 @@ def test_pin_llr_on_card_matches_plain(dev, B):
         ref = wa.llr_plain(got[0], pin, args["fill"], args["qmag"], layout)
         assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), \
             name
+
+
+def _off_alignment(t, off):
+    """A copy of ``t`` whose storage starts ``off`` bytes past an aligned
+    address (contiguous, so the kernel takes it)."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    buf[off:] = t.reshape(-1)
+    return buf[off:].view(t.shape)
+
+
+@pytest.mark.parametrize("B", [1, 8, 33, 128])
+def test_pin_llr_at_every_width_on_card_matches_plain(dev, B):
+    """z = 2,048 (the production rung), 64 and 16, with pins of both
+    families overlapping, and every input aligned or 1, 4, 7, 8 or 13
+    bytes off alignment (each shift of two aligned 16-byte loads); z = 24
+    and 10, which no ladder has, take the kernel's byte body."""
+    from qtpu_torch import window_assembly as wa
+    from qtpu_torch.ldpc.encode import ColumnLayout
+    from qtpu_torch.pipeline import production_config
+    cfg = production_config()
+    st = make_rate_ladder(cfg.n, cfg.dv, cfg.target_rates,
+                          seed=cfg.code_seed, alg=cfg.alg,
+                          family=cfg.family).steps[4]
+    sh, pu = list(st.short_cols), list(st.punct_cols)
+    layouts = [ColumnLayout(st.code.nb, st.code.z,
+                            [c for c in range(st.code.nb)
+                             if c not in sh + pu], sh, pu),
+               ColumnLayout(8, 64, [0, 2, 3, 5, 6, 7], [1], [4]),
+               ColumnLayout(24, 16, list(range(2, 24)), [0], [1]),
+               ColumnLayout(8, 24, [0, 2, 3, 5, 6, 7], [1], [4]),
+               ColumnLayout(24, 10, list(range(2, 24)), [0], [1])]
+    g = torch.Generator(device=dev).manual_seed(200 + B)
+    for layout in layouts:
+        assert layout.z in (2048, 64, 16, 24, 10)
+        for off in (0, 1, 4, 7, 8, 13):
+            args = _pin_inputs(layout, B, g)
+            if off:
+                args.update({k: _off_alignment(args[k], off) for k in
+                             ("rx", "short_alice", "test_alice")})
+                if args["fill"] is not None:
+                    args["fill"] = _off_alignment(args["fill"], off)
+            before = dict(wa.launches)
+            got = wa.pin_llr(**args)
+            torch.cuda.synchronize()
+            assert wa.launches == dict(before,
+                                       pin_llr=before["pin_llr"] + 1)
+            want = wa.pin_llr_plain(**args)
+            for x, y in zip(got, want, strict=True):
+                assert x.dtype == y.dtype and torch.equal(
+                    x.view(torch.int32) if x.is_floating_point() else x,
+                    y.view(torch.int32) if y.is_floating_point() else y), \
+                    (layout.z, off)
+            rx_pin = _off_alignment(got[0], off)
+            pin = _off_alignment(got[1] | (torch.rand(
+                got[1].shape, generator=g, device=dev) < 0.1), off)
+            out = wa.llr(rx_pin, pin, args["fill"], args["qmag"], layout)
+            assert wa.launches["llr"] == before["llr"] + 1
+            ref = wa.llr_plain(rx_pin, pin, args["fill"], args["qmag"],
+                               layout)
+            assert torch.equal(out.view(torch.int32),
+                               ref.view(torch.int32)), (layout.z, off)
 
 
 def test_window_kernels_reject_bad_inputs_on_card(dev):

@@ -124,3 +124,36 @@ def test_cli_needs_cuda_unless_told_cpu(argv):
         pytest.skip("a card is present")
     with pytest.raises(SystemExit, match="CUDA is not available"):
         profiling.main(argv)
+
+
+def test_replay_small_config():
+    """``replay_timers`` runs the bench's two-party session and its replay
+    of Bob as the bench does (same windows, keys checked by the bench),
+    with timers only inside their timed regions, and restores every method
+    it wraps."""
+    from qtpu_torch import bench, replay_timers
+    before = {**_originals(), **{
+        (owner, attr): getattr(owner, attr)
+        for owner, attr, _ in replay_timers._loop_timers(tpipe)},
+        (bench, "_made"): bench._made}
+    out = replay_timers.replay("cpu", runs=((2, 2),),
+                               cfg=tpipe.PipelineConfig(**SMALL),
+                               chunk_bits=1 << 14)
+    run = out["2_after_2"]
+    for side in ("two_party", "replay"):
+        row = run[side]
+        assert row["windows"] == 2 and row["trace_growth"] == 0
+        assert row["timed_ms"] >= row["outside_ms"] >= 0
+        assert 0 < len(row["settle_ms"]) <= 3
+        assert TIMER_NAMES - {"alice.start_window", "alice.on_rate_select",
+                              "alice.on_verify_ack"} <= row["timers"].keys()
+    assert {"top.alice.on_message", "top.bob.on_message",
+            "top.link.recv"} <= run["two_party"]["timers"].keys()
+    # Only the replay drains the final keys inside its timed region.
+    assert "top.drain_final" in run["replay"]["timers"]
+    assert "top.drain_final" not in run["two_party"]["timers"]
+    assert {"cpu", "start", "end"} <= out["host"].keys()
+    assert {**_originals(), **{
+        (owner, attr): getattr(owner, attr)
+        for owner, attr, _ in replay_timers._loop_timers(tpipe)},
+        (bench, "_made"): bench._made} == before

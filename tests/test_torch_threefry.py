@@ -1,14 +1,15 @@
 """qtpu_torch.random's fused window-program draws against the reference, and
 the host side of the threefry kernel's wrapper.
 
-``seed_rows_at`` and ``randint_at`` draw every protocol seed of the window
-programs (verify seed, test offsets, shortening fill, puncture pad, PA
-seeds).  On the CPU they run their plain versions, which are held here to
+``draws`` makes every protocol seed of a window program (verify seed, test
+offsets, shortening fill, puncture pad, PA seeds) in one table;
+``seed_rows_at`` and ``randint_at`` are its one-draw tables.  On the CPU
+they run their plain versions, which are held here to
 the reference's own constructions in ``qtpu/window_programs.py``
 (``_block_keys``, ``_keys_at``, ``_seed_rows``, ``_seed_rows_at``: a
 ``jax.vmap`` of ``fold_in`` and ``bits``, then the LSB-first unpack; the
 test offsets' ``jax.random.randint``), on numpy-seeded keys.  Tolerance:
-exact.
+exact.  A table's outputs equal its draws made one by one.
 
 The wrapper's checks run without a card: CPU tensors take the plain path
 and launch nothing, malformed arguments raise before any launch, and a call
@@ -17,6 +18,7 @@ back to the plain version.  The kernel itself is held to the plain versions
 on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 5b).
 """
 
+import ctypes
 import re
 
 import jax
@@ -233,3 +235,153 @@ def test_bindings_match_the_kernel_source():
     assert set(entries) == set(tr._ARGTYPES) == set(tr.launches)
     for name, params in entries.items():
         assert len(params.split(",")) == len(tr._ARGTYPES[name]), name
+
+
+# ---------------------------------------------------------------------------
+# The draw table: a window program's draws in one call (one launch on a
+# card).
+
+def _reference_draw(words, d):
+    """One draw as the reference constructs it (numpy)."""
+    key = _tagged(words, d.tags)
+    rows = d.rows
+    if isinstance(rows, range):
+        idx = jnp.arange(rows.start, rows.stop, dtype=jnp.uint32)
+    else:
+        idx = jnp.asarray(rows.numpy().astype(np.uint32))
+    if isinstance(d, tr.SeedRows):
+        return _seed_rows_at(key, idx, d.length)
+    want = jax.vmap(lambda k: jax.random.randint(
+        k, (), jnp.uint32(0), jnp.uint32(d.span), dtype=jnp.uint32))(
+        _keys_at(key, idx))
+    return np.asarray(want).astype(np.int64)
+
+
+_IDX = torch.tensor([5, 0, 127, 3, 96, 2**32 - 1], dtype=torch.int64)
+TABLES = {
+    # Alice's program: puncture pad, shortening fill, verify seed, offsets.
+    "alice": lambda w: [
+        tr.SeedRows(w, (), range(4), 2048),
+        tr.SeedRows(w, (TAG_SHORTFILL,), range(4), 64),
+        tr.SeedRows(w, (TAG_VERIFY,), range(1), 1087),
+        tr.Randint(w, (TAG_TOFF,), range(4), 1024)],
+    # A shard of Bob's program: rows from row0 = 96.
+    "bob_shard": lambda w: [
+        tr.Randint(w, (TAG_TOFF,), range(96, 128), 63488),
+        tr.SeedRows(w, (TAG_SHORTFILL,), range(96, 128), 2048),
+        tr.SeedRows(w, (TAG_VERIFY,), range(1), 63551)],
+    # retry_small: index rows beside a range.
+    "retry_small": lambda w: [
+        tr.SeedRows(w, (TAG_SHORTFILL,), _IDX, 33),
+        tr.SeedRows(w, (TAG_VERIFY,), range(1), 100)],
+    # Eight draws (the most a table takes): every kind, 0-2 tags, range
+    # and index rows, ragged lengths, spans past 2^16 and 2^31.
+    "eight_ragged": lambda w: [
+        tr.SeedRows(w, (), range(3), 1),
+        tr.SeedRows(w, (TAG_VERIFY,), range(2, 5), 31),
+        tr.SeedRows(w, (TAG_TOFF, TAG_SHORTFILL), _IDX, 16421),
+        tr.Randint(w, (), _IDX, 3),
+        tr.Randint(w, (TAG_TOFF, TAG_VERIFY), range(7), 2**32 - 1),
+        tr.SeedRows(w, (5,), range(0), 64),
+        tr.Randint(w, (TAG_TOFF,), range(32, 40), 100003),
+        tr.SeedRows(w, (1, 2), range(1), 110460)],
+}
+
+
+@pytest.mark.parametrize("which", list(TABLES))
+def test_draw_table_equals_single_draws_and_reference(which):
+    """Each output of a table == the same draw alone == the reference's
+    construction; the plain table is the list of the plain draws."""
+    words = _key_words(len(which))
+    table = TABLES[which](words)
+    got = tr.draws(table, "cpu")
+    assert len(got) == len(table) == len(tr.draws_plain(table, "cpu"))
+    for d, g, p in zip(table, got, tr.draws_plain(table, "cpu")):
+        if isinstance(d, tr.SeedRows):
+            alone = tr.seed_rows_at(*d, "cpu")
+            assert g.dtype == torch.uint8 and g.shape == (len(d.rows),
+                                                          d.length)
+        else:
+            alone = tr.randint_at(*d, "cpu")
+            assert g.dtype == torch.int64 and g.shape == (len(d.rows),)
+        assert torch.equal(g, alone) and torch.equal(g, p)
+        np.testing.assert_array_equal(g.numpy(), _reference_draw(words, d))
+
+
+@pytest.fixture
+def table_as_card(monkeypatch):
+    """CPU tensors stand in for CUDA ones and the launch is recorded: each
+    call's table as the kernel would read it."""
+    calls = []
+
+    def call(library, name, argtypes, dev, addr, n):
+        entries = (tr._DrawEntry * n).from_address(addr)
+        calls.append([{f: (tuple(getattr(e, f)) if f in ("key", "tag")
+                           else getattr(e, f)) for f, _ in e._fields_}
+                      for e in entries])
+    monkeypatch.setattr(tr, "_on_card", lambda dev: True)
+    monkeypatch.setattr(tr, "_entry", lambda name: None)
+    monkeypatch.setattr(_build, "call", call)
+    return calls
+
+
+def test_a_table_is_one_launch_of_its_live_draws(table_as_card):
+    """The wrapper fills one entry a draw with rows (in order: kind, tag
+    count, key words, tags, range start, rows, size, its output) and
+    launches once; an empty draw gets its empty output and no entry."""
+    words = [0x12345678, 0x9ABCDEF0]
+    before = tr.launches["threefry_draws"]
+    table = [tr.SeedRows(words, (TAG_VERIFY,), range(2, 5), 70),
+             tr.SeedRows(words, (), range(3, 3), 64),
+             tr.Randint(words, (TAG_TOFF, 2**32 + 7), range(9), 1000)]
+    outs = tr.draws(table, "cpu")
+    assert [tuple(o.shape) for o in outs] == [(3, 70), (0, 64), (9,)]
+    assert tr.launches["threefry_draws"] == before + 1
+    [entries] = table_as_card
+    assert [(e["kind"], e["ntags"], e["key"], e["tag"], e["row0"], e["b"],
+             e["size"], e["out"]) for e in entries] == [
+        (0, 1, tuple(words), (TAG_VERIFY, 0), 2, 3, 70, outs[0].data_ptr()),
+        (1, 2, tuple(words), (TAG_TOFF, 7), 0, 9, 1000,
+         outs[2].data_ptr())]
+    assert all(e["rows"] is None for e in entries)
+    # A table without a live draw launches nothing.
+    assert tr.draws([tr.SeedRows(words, (), range(0), 8)], "cpu")[0].shape \
+        == (0, 8)
+    assert tr.launches["threefry_draws"] == before + 1
+    assert len(table_as_card) == 1
+
+
+def test_bad_tables_raise_before_a_launch(no_kernel):
+    words = _key_words(4)
+    before = dict(tr.launches)
+    with pytest.raises(ValueError, match="at most 8 draws"):
+        tr.draws([tr.SeedRows(words, (), range(1), 8)] * 9, "cuda")
+    with pytest.raises(ValueError, match="SeedRows or a Randint"):
+        tr.draws([(words, (), range(1), 8)], "cuda")
+    with pytest.raises(ValueError, match="span"):
+        tr.draws([tr.SeedRows(words, (), range(1), 8),
+                  tr.Randint(words, (), range(1), 0)], "cuda")
+    with pytest.raises(RuntimeError, match="cannot build threefry"):
+        tr.draws([tr.SeedRows(words, (), range(1), 8),
+                  tr.Randint(words, (), range(4), 9)], "cuda")
+    assert tr.launches == before
+
+
+def test_draw_entry_matches_the_kernel_source():
+    """random._DrawEntry lays out csrc/threefry.cu's QtpuDraw field for
+    field, and MAX_DRAWS is the kernel's kMaxDraws."""
+    src = (_build._CSRC / f"{tr.LIBRARY}.cu").read_text()
+    body = re.search(r"struct QtpuDraw \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"^\s*([\w\s\*]+?)\s*(\w+)(\[\d\])?;", body, re.M)
+    c_types = {"int32_t": ctypes.c_int32, "uint32_t": ctypes.c_uint32,
+               "long long": ctypes.c_longlong, "const int64_t*":
+               ctypes.c_void_p, "void*": ctypes.c_void_p}
+    got = [(name, c_types[" ".join(t.split())] * int(n[1:-1]) if n
+            else c_types[" ".join(t.split())]) for t, name, n in fields]
+    want = tr._DrawEntry._fields_
+    assert [f for f, _ in got] == [f for f, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        assert ctypes.sizeof(a) == ctypes.sizeof(b) and (
+            getattr(a, "_type_", a) == getattr(b, "_type_", b))
+    assert int(re.search(r"kMaxDraws = (\d+);", src).group(1)) \
+        == tr.MAX_DRAWS

@@ -388,6 +388,75 @@ def test_bad_llr_arguments_raise_before_a_launch(cpu_as_card, arg, match):
         wa.llr(args["rx_pin"], args["pin"], d["fill"], 2.0, d["layout"])
 
 
+def test_each_program_draws_in_one_table(monkeypatch):
+    """Every window program that draws makes all of its draws in one
+    ``random.draws`` call (one launch on a card): Alice the pad, fill,
+    verify seed and offsets, Bob the offsets, fill and verify seed (the
+    verify seed no longer after the decode), each retry the fill and the
+    verify seed, the PA its seed; the outputs equal the draws made one by
+    one, as before, and no program depends on what ran before it."""
+    from qtpu_torch.ldpc.codes import make_regular_code as t_regular
+    from qtpu_torch.window_programs import make_header, make_window_programs
+    code = t_regular(1024)
+    z, B = code.z, 4
+    cols = lambda cs: (np.asarray(cs)[:, None] * z
+                       + np.arange(z)[None, :]).reshape(-1)
+    pay = cols([c for c in range(code.nb) if c not in (3, 9)])
+    progs = make_window_programs(code, pay, cols([9]), cols([3]), 20,
+                                 "layered", 64, 300, B, 16, s_max=96,
+                                 retry_bits=100, device="cpu")
+    calls = []
+    draws = tr.draws
+
+    def counted(table, device):
+        calls.append([type(d).__name__ for d in table])
+        return draws(table, device)
+    monkeypatch.setattr(tr, "draws", counted)
+    rng = np.random.default_rng(5)
+    arena = torch.from_numpy(rng.integers(0, 2, 1 << 14, dtype=np.uint8))
+    P = pay.size
+    hdr = make_header(7, 48, [1, 2], [3, 4], test_bits_pb=8,
+                      affine=(5, pow(5, -1, P), 11))
+    payload, syn, hashes, test_v, short_v = progs.alice(arena, hdr)
+    assert calls == [["SeedRows", "SeedRows", "SeedRows", "Randint"]]
+    # Alice's pad, fill and verify-hash matrix from the draws made alone.
+    pad = tr.seed_rows_at(hdr[4:6], (), range(B), z, "cpu")
+    fill = tr.seed_rows_at(hdr[2:4], (5,), range(B), z, "cpu")
+    layout = enc.ColumnLayout(code.nb, z, [c for c in range(code.nb)
+                                           if c not in (3, 9)], [3], [9])
+    assert torch.equal(syn, enc.encode_parts_plain(code, layout,
+                                                   [payload, fill, pad]))
+    bob_hdr = hdr.copy()
+    bob_hdr[4:6] = 0
+    calls.clear()
+    hat, rx_orig, rx_pin, pinmask, stats = progs.bob(
+        arena, bob_hdr, test_v, short_v, syn, hashes, 2.0)
+    assert calls == [["Randint", "SeedRows", "SeedRows"]]
+    calls.clear()
+    failed = np.array([True, False, True, False])
+    positions = np.arange(0, P, 7)[:100]
+    bits = payload[:, torch.from_numpy(positions)]
+    progs.retry(arena, bob_hdr, rx_orig, rx_pin, pinmask, hat, stats, failed,
+                positions, bits, syn, hashes, 2.0)
+    progs.retry_small(arena, bob_hdr, rx_orig, rx_pin, pinmask, hat, stats,
+                      np.array([0, 2, 0, 0]), np.array([1, 1, 0, 0]),
+                      positions, bits, syn, hashes, 2.0)
+    progs.pa(payload, [9, 10])
+    assert calls == [["SeedRows", "SeedRows"]] * 2 + [["SeedRows"]]
+    # A program set that ran nothing before gives the same retry.
+    other = make_window_programs(code, pay, cols([9]), cols([3]), 20,
+                                 "layered", 64, 300, B, 16, s_max=96,
+                                 retry_bits=100, device="cpu")
+    calls.clear()
+    got = other.retry(arena, bob_hdr, rx_orig, rx_pin, pinmask, hat, stats,
+                      failed, positions, bits, syn, hashes, 2.0)
+    assert calls == [["SeedRows", "SeedRows"]]
+    want = progs.retry(arena, bob_hdr, rx_orig, rx_pin, pinmask, hat, stats,
+                       failed, positions, bits, syn, hashes, 2.0)
+    for x, y in zip(got, want, strict=True):
+        assert torch.equal(x, y)
+
+
 def test_other_devices_raise():
     d = _small()
     meta = torch.zeros((2, 1024), dtype=torch.uint8, device="meta")
