@@ -60,12 +60,19 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    unsharded call's rows), at retry_small's 1 and 8 rows, at every rung
    of the n = 4096 mixed ladder (B = 1024) and with every input one byte
    off alignment (pin_llr at B = 128, llr at 8 rows: two aligned loads a
-   run), and at z = 24 and 10 (no ladder's: the byte body), aligned and
-   one byte off;
+   run), and at z = 24 and 10 (no ladder's: the byte bodies; the encoder
+   on codes with parallel edges), aligned and one byte off; the encoder
+   also at 300 blocks (a CTA walks 2-3 through two stages), with the pad
+   or every part one byte off (its threads' bodies), at z = 8,192 (column
+   groups) and on the regular n = 4096 code at B = 1024, and the parts
+   ``alice_program`` hands it are 16-byte aligned;
    at the rung a 3% prior selects each one's call time, the device time
    of a CUDA-graph replay, the plain version's time and the bound (bytes
    at 3.35 TB/s, or its 32-bit operations at the SM's issue rate), and no
-   library call;
+   library call; the encoder's also at the first and last rung, a shard's
+   rows, every timed shape above and every n = 4096 rung, each with the
+   launch it makes (body, grid, threads, shared memory a CTA, stages,
+   column groups);
 6. session: production_config(), Alice and Bob on this card over a direct
    link, fed a BSC(3%) stream generated on the card, for 20 windows —
    identical non-empty keys, equal ledgers, FER <= 0.05, a rung switch, a
@@ -75,7 +82,8 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    Bob's, each party's PA) and one a retry round (per window printed),
    and no plain int64 threefry op and no key fill run; the
    encoder, pin_llr and the retries' llr launched (per window printed),
-   and no plain encoder or pin/LLR assembly run;
+   and no plain encoder or pin/LLR assembly run, every encoder launch
+   with 16-byte aligned parts (the bulk body);
 7. min-sum session: n = 4096 mixed ladder, flooding decoder, B = 1024, the
    same checks, only the flooding kernel launched, and the encoder and
    pin_llr launched (per window printed);
@@ -740,6 +748,14 @@ def window_bound(nbytes, ops):
                                        else "operations")
 
 
+def encoder_bound(code, B):
+    """``window_bound`` of one encoder launch: the codeword read once, the
+    syndromes written once, the table; a 32-bit XOR a word of each edge."""
+    return window_bound(B * code.n + B * code.m
+                        + 4 * (code.mb + 1 + 2 * code.num_edges + 2 * code.nb),
+                        B * code.num_edges * -(-code.z // 4))
+
+
 def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
     """Phase 5c: the syndrome encoder (``qtpu_torch/csrc/qc_encode.cu``)
     and both pin/LLR entry points (``qtpu_torch/csrc/pin_llr.cu``) == their
@@ -748,14 +764,23 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
     4 shards' rows (b = 32, == the unsharded call's rows), retry_small's 1
     and 8 rows and the full-B retry, and every rung of the n = 4096 mixed
     ladder at B = 1024 (``ms_probe``).  Timed at the rung a 3% prior
-    selects, and with every input one byte off alignment.  Returns
-    {"qc_encode", "pin_llr", "pin_llr_off", "llr_8": Draw}."""
+    selects, and with every input one byte off alignment.  The encoder
+    is also held and timed at the first and last rung, a shard's rows, 300
+    blocks (a CTA walks several), parts off alignment, every n = 4096 rung
+    and the regular n = 4096 code at B = 1024, z = 8,192 (column groups),
+    and held at z = 24 and 10, each with the launch it makes (body, grid,
+    threads, shared memory a CTA, stages, column groups); the parts
+    ``alice_program`` hands it are 16-byte aligned.  Returns {"qc_encode",
+    "pin_llr", "pin_llr_off", "llr_8": Draw, "qc_encode_shapes": {label:
+    (Draw, plan)}}."""
     import numpy as np
     import torch
     from qtpu_torch import window_assembly as wa
     from qtpu_torch.ldpc import encode as enc
+    from qtpu_torch.ldpc.codes import make_regular_code
+    from qtpu_torch.window_programs import make_header
     g = torch.Generator(device=dev).manual_seed(56)
-    out = {}
+    out = {"qc_encode_shapes": {}}
 
     def bits(*shape):
         return torch.randint(0, 2, shape, generator=g, device=dev,
@@ -778,17 +803,28 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
                     layout=layout)
         return code, layout, parts, pins
 
-    def check_rung(session, r, B, label, reps):
+    def hold_encoder(label, code, layout, parts, reps=0):
+        """The encoder == plain on ``parts``; with ``reps`` also its times
+        and the launch it makes (printed, kept in qc_encode_shapes)."""
+        encode = enc.make_parts_encoder(code, layout)
+        B = next(t for t in parts if t is not None).shape[0]
+        d = hold_kernel("qc_encode", label, lambda: encode(*parts),
+                        lambda: enc.encode_parts_plain(code, layout, parts),
+                        encoder_bound(code, B), reps)
+        if reps:
+            plan = enc.launch_plan(code, layout, parts)
+            say(f"qc_encode {label}: body {plan['body']}, grid "
+                f"{plan['grid']}, {plan['threads']} threads, {plan['smem']} "
+                f"B of shared memory a CTA, {plan['stages']} stage(s), "
+                f"{plan['groups']} column group(s)")
+            out["qc_encode_shapes"][label] = (d, plan)
+        return d
+
+    def check_rung(session, r, B, label, reps, enc_reps=None):
         code, layout, parts, pins = rung_inputs(session, r, B)
         z, P = code.z, layout.widths[0] * code.z
-        encode = enc.make_parts_encoder(code, layout)
-        d = hold_kernel(
-            "qc_encode", f"{label} B={B}", lambda: encode(*parts),
-            lambda: enc.encode_parts_plain(code, layout, parts),
-            window_bound(B * code.n + B * code.m
-                         + 4 * (code.mb + 1 + 2 * code.num_edges
-                                + 2 * code.nb),
-                         B * code.num_edges * -(-z // 4)), reps)
+        d = hold_encoder(f"{label} B={B}", code, layout, parts,
+                         reps if enc_reps is None else enc_reps)
         fill_bytes = B * layout.widths[1] * z
         d_pin = hold_kernel(
             "pin_llr", f"{label} B={B}", lambda: wa.pin_llr(**pins),
@@ -807,14 +843,45 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
 
     B = cfg.blocks_per_window
     rung = prior_rung(cfg, dev)
+    last = len(probe.ladder.steps) - 1
     for r, st in enumerate(probe.ladder.steps):
         reps = 20 if r == rung else 0
-        res = check_rung(probe, r, B, f"rung {r} ({st.name})", reps)
+        res = check_rung(probe, r, B, f"rung {r} ({st.name})", reps,
+                         20 if r in (0, rung, last) else 0)
         if r == rung:
             (out["qc_encode"], out["pin_llr"], code, layout, parts, pins,
              rx_pin, pin) = res
     say(f"window kernels: every rung of the production ladder at B={B} == "
         f"plain (qc_encode, pin_llr, llr)")
+    # The parts as alice_program hands them to the encoder (a payload
+    # framed at an odd cursor): 16-byte aligned, so the bulk body.
+    prog = probe.programs(rung)
+    P = layout.widths[0] * code.z
+    handed = []
+
+    def spy(name, dev_, *args, real=enc._launch):
+        handed.append([p for p in args[:3] if p is not None])
+        return real(name, dev_, *args)
+    header = make_header(3, prog.s_max, np.array([1, 2]), np.array([3, 4]),
+                         test_bits_pb=prog.k_pb,
+                         affine=probe._affine_for(0, P))
+    with mock.patch.object(enc, "_launch", spy):
+        prog.alice(bits(B * P + 64), header)
+    assert len(handed) == 1 and handed[0], handed
+    assert all(p % 16 == 0 for p in handed[0]), \
+        f"alice_program's parts off 16-byte alignment: {handed}"
+    say(f"qc_encode: alice_program at rung {rung} hands over "
+        f"{len(handed[0])} parts, each 16-byte aligned (the bulk body)")
+    # 300 blocks: a CTA walks 2-3 of them through two stages.
+    wide = [bits(300, w * code.z) if w else None for w in layout.widths]
+    hold_encoder(f"rung {rung} B=300", code, layout, wide, 20)
+    # Parts off alignment: the pad alone (mixed body), then every part.
+    if parts[2] is not None:
+        hold_encoder(f"rung {rung} B={B}, pad one byte off", code, layout,
+                     parts[:2] + [one_byte_off(parts[2])], 20)
+    hold_encoder(f"rung {rung} B={B}, every part one byte off", code,
+                 layout, [None if t is None else one_byte_off(t)
+                          for t in parts], 20)
     # 4 shards' rows: each shard's call == plain and == the unsharded rows.
     bl = B // MESH_SHARDS
     full = wa.pin_llr(**pins)
@@ -829,6 +896,12 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
                     lambda: wa.pin_llr_plain(**part))
         for x, y in zip(wa.pin_llr(**part), full):
             assert torch.equal(x, y[rows]), f"shard {sh}: != unsharded rows"
+        shard_parts = [None if t is None else t[rows].contiguous()
+                       for t in parts]
+        hold_encoder(f"rung {rung} shard {sh} rows {sh * bl}.. B={bl}",
+                     code, layout, shard_parts, 20 if sh == 0 else 0)
+        assert torch.equal(enc.make_parts_encoder(code, layout)(*shard_parts),
+                           enc.make_parts_encoder(code, layout)(*parts)[rows])
     say(f"window kernels: {MESH_SHARDS} shards' rows (b = {bl}) == plain "
         f"and == the unsharded call's rows")
     # retry_small: 1 and 8 failed rows (index-selected, as the program does).
@@ -861,10 +934,18 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
                 pins["qmag"], layout)
     hold_kernel("llr", "retry_small 8 rows one byte off alignment",
                 lambda: wa.llr(*off_args), lambda: wa.llr_plain(*off_args))
-    # z not a multiple of 16 (no ladder of the repo has one): the kernel's
-    # byte body, with every input aligned and one byte off.
+    # z not a multiple of 16 (no ladder of the repo has one): the kernels'
+    # byte bodies, with every input aligned and one byte off; the encoder
+    # on a code with parallel edges and a shortened and a punctured column.
     for lay in (enc.ColumnLayout(8, 24, [0, 2, 3, 5, 6, 7], [1], [4]),
                 enc.ColumnLayout(24, 10, list(range(2, 24)), [0], [1])):
+        zcode = enc.random_qc_code(lay.z, lay.nb, 4 if lay.z == 24 else 6)
+        zparts = [bits(B, w * lay.z) for w in lay.widths]
+        for moved in (False, True):
+            hold_encoder(f"z={lay.z} B={B}" + (", one byte off" if moved
+                                               else ""), zcode, lay,
+                         [one_byte_off(t) for t in zparts] if moved
+                         else zparts)
         P = lay.widths[0] * lay.z
         a = 5 if P % 5 else 7
         boff_t = torch.randint(0, P, (B,), generator=g, device=dev)
@@ -890,14 +971,23 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
                                        args["qmag"], lay),
                         lambda: wa.llr_plain(zpin, zmask, args["fill"],
                                              args["qmag"], lay))
-    say(f"window kernels: z = 24 and 10 (the byte body) at B={B}, aligned "
-        f"and one byte off == plain (pin_llr, llr)")
-    # The n = 4096 mixed ladder at B = 1024 (min-sum sessions, the chain).
+    say(f"window kernels: z = 24 and 10 (the byte bodies) at B={B}, "
+        f"aligned and one byte off == plain (qc_encode, pin_llr, llr)")
+    # z = 8,192: a block's columns do not fit in shared memory at once.
+    wcode = enc.random_qc_code(8192, 32, 4)
+    wlay = enc.ColumnLayout.whole(wcode)
+    hold_encoder("z=8192 nb=32 B=8", wcode, wlay, [bits(8, wcode.n)], 20)
+    # The n = 4096 mixed ladder at B = 1024 (min-sum sessions, the chain),
+    # and the regular n = 4096 code (BASELINE configs 2 and 3).
     mB = ms_probe.config.blocks_per_window
     for r, st in enumerate(ms_probe.ladder.steps):
-        check_rung(ms_probe, r, mB, f"n=4096 mixed rung {r} ({st.name})", 0)
-    say(f"window kernels: every rung of the n = 4096 mixed ladder at "
-        f"B={mB} == plain")
+        check_rung(ms_probe, r, mB, f"n=4096 mixed rung {r} ({st.name})", 0,
+                   20)
+    reg = make_regular_code(4096)
+    hold_encoder(f"regular n=4096 B={mB}", reg, enc.ColumnLayout.whole(reg),
+                 [bits(mB, reg.n)], 20)
+    say(f"window kernels: every rung of the n = 4096 mixed ladder and the "
+        f"regular n = 4096 code at B={mB} == plain")
     return out
 
 
@@ -1978,7 +2068,15 @@ def main() -> int:
                  (enc, "encode_plain"), (enc, "encode_parts_plain"),
                  (wa, "pin_llr_plain"), (wa, "llr_plain")]
     from qtpu_torch.pipeline import BobSession
+    # The encoder's launches whose parts lie off 16-byte alignment (the
+    # threads' body): none on the main path.
+    off_parts = collections.Counter()
+
+    def launch_spy(name, dev_, *args, real=enc._launch):
+        off_parts[name] += any(p is not None and p % 16 for p in args[:3])
+        return real(name, dev_, *args)
     with contextlib.ExitStack() as patches:
+        patches.enter_context(mock.patch.object(enc, "_launch", launch_spy))
         for owner, name in plain_fns:
             patches.enter_context(mock.patch.object(
                 owner, name, counted(name, getattr(owner, name))))
@@ -2012,6 +2110,9 @@ def main() -> int:
         + "); no plain threefry op, no key fill")
     wk_per_window = check_window_kernels("session", prod, len(mets),
                                          retried=True)
+    assert off_parts["qc_encode"] == 0, off_parts
+    say(f"session qc_encode: all {prod['qc_encode']} launches had 16-byte "
+        f"aligned parts (the bulk body)")
     del alice, bob, a_src, b_src
 
     # 7. the min-sum session (flooding decoder) on this card, at 5c's
@@ -2296,7 +2397,13 @@ def main() -> int:
         "plain_ms": round(encoder.plain_ms, 2),
         "bound_ms": round(encoder.bound_ms, 5),
         "bound_by": encoder.bound_by, "library_ms": None,
-        "timed": "the rung a 3% prior selects, B = 128"}, {
+        "timed": "the rung a 3% prior selects, B = 128",
+        "shapes": {label: {"ms": round(d.ms, 4),
+                           "device_ms": round(d.device_ms, 4),
+                           "bound_ms": round(d.bound_ms, 5),
+                           "bound_by": d.bound_by, **plan}
+                   for label, (d, plan)
+                   in assembled["qc_encode_shapes"].items()}}, {
         "name": "pin_llr", "route": "cuda",
         "source": "qtpu_torch/csrc/pin_llr.cu",
         "replaces": "qtpu/window_programs.py:345-362",

@@ -26,28 +26,34 @@ import ctypes
 import numpy as np
 import torch
 
-from qtpu_torch.ldpc.codes import QCCode
+from qtpu_torch.ldpc.codes import QCCode, _group_edges
 
 __all__ = ["make_batch_encoder", "make_parts_encoder", "encode_syndrome_batch",
            "encode_plain", "encode_parts_plain", "ColumnLayout", "launches",
-           "LIBRARY"]
+           "launch_plan", "random_qc_code", "LIBRARY"]
 
 # The kernel library (qtpu_torch/csrc/qc_encode.cu) and its launches since
 # import (or since a caller reset them).
 LIBRARY = "qc_encode"
 launches = {"qc_encode": 0}
 
-# Parts a codeword may come in, and the widest circulant the kernel stages
-# in its 48 KB of shared memory (the accumulator and one rotated column).
+# Parts a codeword may come in, and the widest circulant the kernel takes
+# (a block's columns staged in shared memory in groups where they do not
+# fit at once: z = 8192 at nb = 32; no ladder of the repo goes past 4096).
 MAX_PARTS = 3
 MAX_Z = 8192
 
 _INT, _PTR = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = {
-    # parts 0-2, their widths in columns, table, b, mb, nb, z, E, max_deg,
-    # out; stream
-    "qc_encode": [_PTR] * 3 + [_INT] * 3 + [_PTR] + [_INT] * 6 + [_PTR, _PTR],
+    # parts 0-2, their widths in columns, table, b, mb, nb, z, E, out;
+    # stream
+    "qc_encode": [_PTR] * 3 + [_INT] * 3 + [_PTR] + [_INT] * 5 + [_PTR, _PTR],
+    # parts 0-2, their widths, b, mb, nb, z, E, int32[8] out
+    "qc_encode_plan": [_PTR] * 3 + [_INT] * 8 + [_PTR],
 }
+# The kernel's bodies (csrc/qc_encode.cu): every part of a block staged by
+# TMA bulk copies, some of them, or none (the CTA's threads stage them).
+BODIES = ("bulk", "mixed", "threads")
 
 
 class ColumnLayout:
@@ -89,7 +95,8 @@ class ColumnLayout:
     def check_parts(self, parts, b: int, dev) -> list:
         """``parts`` (a tensor, or None for a part of no columns) as uint8
         (b, width · z) tensors on ``dev``, contiguous; raises on anything
-        else."""
+        else.  A part's bytes are bits: the encoders read each byte's
+        lowest bit only (not checked: it would cost a pass over them)."""
         what = "codeword"
         if len(parts) != len(self.widths):
             raise ValueError(f"{len(self.widths)} {what} parts, got "
@@ -122,15 +129,32 @@ class ColumnLayout:
         return x[:, self.on(x.device)[0], :].reshape(b, self.nb * self.z)
 
 
+def random_qc_code(z: int, nb: int, mb: int) -> QCCode:
+    """A QC code of any lift ``z``, made from seed ``z``, to hold the
+    encoder at shapes no ladder has (z not a multiple of 16, z = 8,192):
+    every base column once in row c % mb, nb more edges at random, and
+    edges (0, 0) and (1, 1) twice (parallel edges, which cancel)."""
+    rng = np.random.default_rng(z)
+    rows = np.concatenate([np.arange(nb) % mb, rng.integers(0, mb, nb),
+                           [0, 1]]).astype(np.int32)
+    cols = np.concatenate([np.arange(nb), rng.permutation(nb),
+                           [0, 1]]).astype(np.int32)
+    return QCCode(z=z, mb=mb, nb=nb, edge_row=rows, edge_col=cols,
+                  edge_shift=rng.integers(0, z, rows.size).astype(np.int32),
+                  row_edges=_group_edges(rows, mb),
+                  col_edges=_group_edges(cols, nb))
+
+
 # ---------------------------------------------------------------------------
 # The plain PyTorch versions: the CPU path and the kernel's oracle.
 
 def encode_plain(code: QCCode, bits: torch.Tensor) -> torch.Tensor:
     """(B, n) -> (B, m) uint8 syndromes by roll + XOR, one per base edge,
-    on any device."""
+    on any device; each byte's lowest bit is its bit, as the kernel reads
+    it."""
     b = bits.shape[0]
     mb, nb, z = code.mb, code.nb, code.z
-    x = bits.to(torch.uint8).reshape(b, nb, z)
+    x = bits.to(torch.uint8).reshape(b, nb, z) & 1
     syn = [None] * mb
     for i, j, s in zip(code.edge_row.tolist(), code.edge_col.tolist(),
                        code.edge_shift.tolist()):
@@ -173,27 +197,58 @@ def _on_card(dev: torch.device) -> bool:
 
 
 def code_table(code: QCCode, layout: ColumnLayout) -> np.ndarray:
-    """The kernel's int32 table: row_start[mb + 1], the edges' columns and
-    shifts grouped by base row (parallel edges kept: they cancel), then
-    ``layout.sources`` (each base column's part, then its column there)."""
+    """The kernel's int32 table: row_start[mb + 1] padded to an even count,
+    then (position, shift mod z) for each edge grouped by base row
+    (parallel edges kept: they cancel), padded to whole 16 bytes.  An
+    edge's position is its base column's place among the parts' columns
+    side by side (``layout.inv``), where the kernel stages it."""
     order = np.argsort(code.edge_row, kind="stable")
     start = np.searchsorted(code.edge_row[order], np.arange(code.mb + 1))
-    return np.concatenate([start, code.edge_col[order],
-                           code.edge_shift[order],
-                           layout.sources.reshape(-1)]).astype(np.int32)
+    head = np.zeros((code.mb + 2) & ~1, np.int64)
+    head[:code.mb + 1] = start
+    edges = np.stack([layout.inv[code.edge_col[order]],
+                      code.edge_shift[order] % code.z], axis=1)
+    table = np.concatenate([head, edges.reshape(-1)])
+    return np.concatenate([table, np.zeros(-table.size % 4, np.int64)]
+                          ).astype(np.int32)
+
+
+def _part_args(layout: ColumnLayout, given) -> list:
+    """The entry points' first six arguments: the parts' pointers (None for
+    a part of no columns) and widths, padded to MAX_PARTS."""
+    pad = MAX_PARTS - len(given)
+    return ([None if t is None else t.data_ptr() for t in given]
+            + [None] * pad + list(layout.widths) + [0] * pad)
+
+
+def launch_plan(code: QCCode, layout: ColumnLayout, parts) -> dict:
+    """The launch the kernel makes for ``parts`` (CUDA tensors, as
+    ``make_parts_encoder``'s encoder takes them): grid, threads, dynamic
+    shared memory a CTA, stages, columns a stage, column groups a block,
+    and which body stages the parts (``BODIES``)."""
+    first = next(t for t in parts if t is not None)
+    dev, b = first.device, first.shape[0]
+    given = layout.check_parts(parts, b, dev)
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(dev):
+        rc = _entry("qc_encode_plan")(*_part_args(layout, given), b, code.mb,
+                                      code.nb, code.z, code.num_edges, out)
+    if rc != 0:
+        raise RuntimeError(f"qc_encode_plan failed (code {rc})")
+    keys = ("grid", "threads", "smem", "stages", "group", "groups")
+    return dict(zip(keys, out[:6]), body=BODIES[out[7]])
 
 
 def make_parts_encoder(code: QCCode, layout: ColumnLayout):
     """Build ``encode(*parts) -> (b, m) uint8``: the syndromes of the
-    codeword ``layout`` assembles from ``parts`` (uint8 (b, width · z), or
-    None for a part of no columns).  CPU parts take the plain version; CUDA
-    parts launch the kernel once, or raise."""
+    codeword ``layout`` assembles from ``parts`` (uint8 (b, width · z) of
+    bits, or None for a part of no columns; each byte's lowest bit is
+    read).  CPU parts take the plain version; CUDA parts launch the kernel
+    once, or raise."""
     if (layout.nb, layout.z) != (code.nb, code.z):
         raise ValueError(f"layout of {layout.nb} x {layout.z} for a code of "
                          f"{code.nb} x {code.z}")
     table_np = code_table(code, layout)
-    max_deg = int(np.bincount(code.edge_row, minlength=code.mb).max()) \
-        if code.num_edges else 0
     tables: dict = {}
 
     def encode(*parts) -> torch.Tensor:
@@ -206,18 +261,16 @@ def make_parts_encoder(code: QCCode, layout: ColumnLayout):
         b = first.shape[0]
         given = layout.check_parts(parts, b, dev)
         if code.z > MAX_Z:
-            raise ValueError(f"z = {code.z} > {MAX_Z}: the kernel stages a "
-                             f"column in shared memory")
+            raise ValueError(f"z = {code.z} > {MAX_Z}: the kernel stages "
+                             f"columns in shared memory")
         _entry("qc_encode")
         out = torch.empty((b, code.m), dtype=torch.uint8, device=dev)
         if dev not in tables:
             tables[dev] = torch.from_numpy(table_np).to(dev)
         if b:
-            pad = [None] * (MAX_PARTS - len(given))
-            ptrs = [None if t is None else t.data_ptr() for t in given]
-            _launch("qc_encode", dev, *ptrs, *pad, *layout.widths,
-                    *[0] * len(pad), tables[dev].data_ptr(), b, code.mb,
-                    code.nb, code.z, code.num_edges, max_deg, out.data_ptr())
+            _launch("qc_encode", dev, *_part_args(layout, given),
+                    tables[dev].data_ptr(), b, code.mb, code.nb, code.z,
+                    code.num_edges, out.data_ptr())
         return out
 
     return encode

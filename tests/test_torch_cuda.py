@@ -15,7 +15,10 @@ of ``qtpu_torch.random`` (seed rows at the PA seed's, the verify seed's and
 the pad's lengths, offsets at the ladder's spans, every draw table of the
 production ladder's programs, one launch a table), the encoder and the
 pin/LLR kernels against their plain versions (every rung of the n = 1024
-and n = 4096 ladders, shortened and parallel-edge codes, unaligned parts;
+and n = 4096 ladders, shortened and parallel-edge codes, z = 24 and 10,
+unaligned parts; each body of the encoder with the launch it makes:
+production rungs at 32, 128 and 300 blocks, a part or every part off
+alignment, 5,000 n = 4096 blocks, z = 8,192 in column groups;
 pin_llr and llr at z = 2,048, 64 and 16, B = 1 to 128, every input
 aligned or off alignment; LLRs by their float32 bit patterns), a session on the card against the
 same session on
@@ -39,7 +42,7 @@ from qtpu_torch.ldpc.codes import (QCCode, _group_edges, make_rate_ladder,
                                    make_regular_code)
 from qtpu_torch.ldpc.decode import (channel_llr, make_flooding_decoder,
                                     make_layered_decoder)
-from qtpu_torch.ldpc.encode import make_batch_encoder
+from qtpu_torch.ldpc.encode import make_batch_encoder, random_qc_code
 from qtpu_torch.pipeline import PipelineConfig, run_loopback
 
 pytestmark = pytest.mark.cuda
@@ -525,10 +528,17 @@ def test_threefry_rejects_bad_inputs_on_card(dev):
 # assembly (csrc/pin_llr.cu); chip_smoke.py phase 5c holds both at every
 # production rung.
 
+# z = 24 and 10 (no ladder's: the encoder's general body), each with a
+# shortened and a punctured column: (code, payload, shortened, punctured).
+ODD_Z = {24: (lambda: random_qc_code(24, 8, 4), [0, 2, 3, 5, 6, 7], [1], [4]),
+         10: (lambda: random_qc_code(10, 24, 6), list(range(2, 24)), [0], [1])}
+
+
 def _window_layouts():
     """(name, code, ColumnLayout): every rung of the n = 1024 and mixed
-    n = 4096 ladders, a regular n = 1024 code with shortened and punctured
-    columns, and a code with parallel edges (z = 16)."""
+    n = 4096 ladders, the z = 24 and 10 codes, a regular n = 1024 code with
+    shortened and punctured columns, and a code with parallel edges
+    (z = 16)."""
     from qtpu_torch.ldpc.encode import ColumnLayout
     out = []
     for cfg in (PipelineConfig(n=1024),
@@ -541,6 +551,9 @@ def _window_layouts():
             pay = [c for c in range(st.code.nb) if c not in sh + pu]
             out.append((f"n{cfg.n} r{r}", st.code,
                         ColumnLayout(st.code.nb, st.code.z, pay, sh, pu)))
+    for z, (make, pay, sh, pu) in ODD_Z.items():
+        code = make()
+        out.append((f"z={z}", code, ColumnLayout(code.nb, z, pay, sh, pu)))
     reg = make_regular_code(1024)
     out.append(("regular short+punct", reg,
                 ColumnLayout(reg.nb, reg.z, [c for c in range(reg.nb)
@@ -550,16 +563,19 @@ def _window_layouts():
     return out
 
 
-def _card_parts(layout, B, g, offset=0):
-    """Random uint8 parts on the card, each ``offset`` bytes into its own
-    buffer (offset 1: no part is 16-byte aligned)."""
+def _card_parts(layout, B, g, offset=0, high=2):
+    """Random uint8 parts in [0, high) on the card (bits by default), each
+    ``offset`` bytes (one number, or one a part) into its own buffer
+    (offset 1: no part is 16-byte aligned)."""
+    offsets = ([offset] * len(layout.widths) if isinstance(offset, int)
+               else offset)
     out = []
-    for w in layout.widths:
+    for w, offset in zip(layout.widths, offsets):
         if not w:
             out.append(None)
             continue
         size = B * w * layout.z
-        buf = torch.randint(0, 2, (size + offset,), generator=g,
+        buf = torch.randint(0, high, (size + offset,), generator=g,
                             device=g.device, dtype=torch.uint8)
         out.append(buf[offset:].view(B, w * layout.z))
     return out
@@ -584,6 +600,96 @@ def test_qc_encode_on_card_matches_plain(dev, B):
                           dtype=torch.uint8)
         assert torch.equal(enc.make_batch_encoder(code)(x),
                            enc.encode_plain(code, x)), name
+
+
+def _production_layout(rung):
+    """(code, ColumnLayout) of production rung ``rung`` (z = 2,048)."""
+    from qtpu_torch.ldpc.encode import ColumnLayout
+    from qtpu_torch.pipeline import production_config
+    cfg = production_config()
+    st = make_rate_ladder(cfg.n, cfg.dv, cfg.target_rates,
+                          seed=cfg.code_seed, alg=cfg.alg,
+                          family=cfg.family).steps[rung]
+    sh, pu = list(st.short_cols), list(st.punct_cols)
+    return st.code, ColumnLayout(st.code.nb, st.code.z,
+                                 [c for c in range(st.code.nb)
+                                  if c not in sh + pu], sh, pu)
+
+
+def _encoder_case(code):
+    """(code, ColumnLayout) of a name: a production rung ("r4"), the
+    n = 4096 mixed ladder's rung 0, the wide z = 8,192 code, or an odd
+    z ("z=24")."""
+    from qtpu_torch.ldpc.encode import ColumnLayout
+    if code[0] == "r":
+        return _production_layout(int(code[1:]))
+    if code == "n4096 r0":
+        c = make_rate_ladder(4096, family="mixed", alg="minsum").steps[0].code
+        return c, ColumnLayout.whole(c)
+    if code == "z=8192":
+        # A block does not fit in shared memory at once: column groups.
+        c = random_qc_code(8192, 32, 4)
+        return c, ColumnLayout.whole(c)
+    make, pay, sh, pu = ODD_Z[int(code[2:])]
+    c = make()
+    return c, ColumnLayout(c.nb, c.z, pay, sh, pu)
+
+
+# (code, b, bytes each part lies off alignment, the body it takes)
+ENCODER_BODIES = [
+    ("r4", 128, 0, "bulk"), ("r4", 32, 0, "bulk"), ("r4", 300, 0, "bulk"),
+    ("r0", 128, 0, "bulk"), ("r9", 128, 0, "bulk"),
+    ("r4", 128, (0, 0, 1), "mixed"), ("r4", 128, 1, "threads"),
+    ("n4096 r0", 5000, 0, "bulk"), ("z=8192", 4, 0, "bulk"),
+    ("z=24", 33, 0, "threads"), ("z=10", 33, 0, "threads")]
+
+
+@pytest.mark.parametrize("code,b,off,body", ENCODER_BODIES)
+def test_qc_encode_bodies_on_card(dev, code, b, off, body):
+    """Each body of the encoder == plain, with the launch it makes:
+    production rungs take the bulk copies (one CTA a block at b <= 132;
+    at b = 300 a CTA walks 2-3 blocks through two stages); the pad one
+    byte off alignment is staged by the threads (mixed), all parts off by
+    the threads alone; n = 4096 at b = 5,000 (more than 132 SMs hold)
+    walks blocks too; z = 8,192 stages each block in column groups; z = 24
+    and 10 take the byte body."""
+    from qtpu_torch.ldpc import encode as enc
+    code_, layout = _encoder_case(code)
+    g = torch.Generator(device=dev).manual_seed(b)
+    parts = _card_parts(layout, b, g, off)
+    plan = enc.launch_plan(code_, layout, parts)
+    assert plan["body"] == body, plan
+    assert plan["grid"] <= b and 0 < plan["smem"] <= 232448, plan
+    if code == "z=8192":
+        assert plan["groups"] > 1 and plan["stages"] == 2, plan
+    elif b in (300, 5000):
+        assert plan["grid"] < b and plan["stages"] == 2, plan
+    else:
+        assert plan["grid"] == b and plan["stages"] == 1, plan
+    before = enc.launches["qc_encode"]
+    got = enc.make_parts_encoder(code_, layout)(*parts)
+    torch.cuda.synchronize()
+    assert enc.launches["qc_encode"] == before + 1
+    assert torch.equal(got, enc.encode_parts_plain(code_, layout, parts)), \
+        plan
+
+
+@pytest.mark.parametrize("code,off", [("r4", 0), ("r4", 1), ("z=8192", 0),
+                                      ("z=24", 0), ("z=10", 1)])
+def test_qc_encode_reads_each_bytes_lowest_bit(dev, code, off):
+    """Parts of bytes 0..255: every body (bits packed from bulk copies or
+    from the threads' staging, column groups, the byte body) reads each
+    byte's lowest bit, as the plain version does."""
+    from qtpu_torch.ldpc import encode as enc
+    code_, layout = _encoder_case(code)
+    b = 4 if code == "z=8192" else 33
+    g = torch.Generator(device=dev).manual_seed(7)
+    parts = _card_parts(layout, b, g, off, high=256)
+    got = enc.make_parts_encoder(code_, layout)(*parts)
+    bits = [None if t is None else t & 1 for t in parts]
+    want = enc.encode_parts_plain(code_, layout, bits)
+    assert torch.equal(got, want)
+    assert torch.equal(enc.encode_parts_plain(code_, layout, parts), want)
 
 
 def _pin_inputs(layout, B, g, s_max=96, k_max=16):

@@ -8,7 +8,10 @@ and rolls and XORs.  Here it is held to ``qtpu.ldpc.encode``'s encoder on
 the same codeword, assembled in numpy from the same numpy-seeded parts, on
 every rung of the n = 1024 and the mixed n = 4096 ladders (punctured
 rungs), on regular n = 1024 codes with shortened columns, on one production
-n = 65536 rung at B = 2 and on a code with parallel edges.
+n = 65536 rung at B = 2, on a code with parallel edges and on two codes
+whose z (24, 10) is not a multiple of 16; the kernel's table (each edge's
+column by its position among the parts' columns) is held to the same
+encoder.
 
 ``qtpu_torch.window_assembly.pin_llr_plain`` is held to the reference's
 ``alice_program`` -> ``bob_program`` on the same arena and header: the
@@ -87,6 +90,10 @@ GEOMETRIES = {
     "regular1024_short_only": (lambda: _regular([0, 5], []), 3),
     "production_r4": (lambda: _ladder_geometry(production_config(), 4), 2),
     "parallel_edges": (lambda: (_parallel_edge_code(), [0, 3], [2], [1]), 5),
+    "odd_z24": (lambda: (enc.random_qc_code(24, 8, 4), [0, 2, 3, 5, 6, 7],
+                         [1], [4]), 5),
+    "odd_z10": (lambda: (enc.random_qc_code(10, 24, 6), list(range(2, 24)),
+                         [0], [1]), 3),
 }
 
 
@@ -120,6 +127,58 @@ def test_parts_encoder_equals_reference(which):
         enc.make_parts_encoder(code, layout)(*tparts).numpy(), want)
     np.testing.assert_array_equal(
         enc.make_batch_encoder(code)(torch.from_numpy(x)).numpy(), want)
+
+
+def _table_syndromes(code, layout, parts):
+    """The syndromes the kernel's table describes, in numpy: the parts'
+    columns side by side; an edge (position, shift) of row i XORs the
+    column at that position rotated left by shift."""
+    table = enc.code_table(code, layout)
+    mb, z, E = code.mb, code.z, code.num_edges
+    start = table[:mb + 1]
+    head = (mb + 2) & ~1
+    edges = table[head:head + 2 * E].reshape(E, 2)
+    assert table.size % 4 == 0 and not table[head + 2 * E:].any()
+    x = np.concatenate([p for p in parts if p.size], axis=1)
+    syn = np.zeros((x.shape[0], mb, z), np.uint8)
+    for i in range(mb):
+        for pos, shift in edges[start[i]:start[i + 1]]:
+            assert 0 <= shift < z
+            syn[:, i] ^= np.roll(x[:, pos * z:(pos + 1) * z], -shift, axis=1)
+    return syn.reshape(x.shape[0], mb * z)
+
+
+@pytest.mark.parametrize("which", list(GEOMETRIES))
+def test_kernel_table_describes_the_reference_encoder(which):
+    """The kernel's table (each edge's column by its position among the
+    parts' columns, shifts mod z, padded to 16 bytes) encodes what
+    ``qtpu``'s encoder does."""
+    make, B = GEOMETRIES[which]
+    jcode, pay, short, punct = make()
+    code = code_from_reference(jcode)
+    parts, x = _parts(code, pay, short, punct, B, len(which) + 1)
+    want = np.asarray(jencode.make_batch_encoder(jcode)(jnp.asarray(x)))
+    layout = enc.ColumnLayout(code.nb, code.z, pay, short, punct)
+    np.testing.assert_array_equal(_table_syndromes(code, layout, parts),
+                                  want)
+
+
+@pytest.mark.parametrize("which", list(GEOMETRIES))
+def test_parts_encoder_reads_each_bytes_lowest_bit(which):
+    """Parts of bytes 0..255 encode as their lowest bits do, through the
+    table that ``qtpu``'s encoder is held to (the kernel's bodies read each
+    byte's lowest bit too)."""
+    make, B = GEOMETRIES[which]
+    jcode, pay, short, punct = make()
+    code = code_from_reference(jcode)
+    rng = np.random.default_rng(len(which) + 2)
+    parts = [rng.integers(0, 256, (B, len(c) * code.z), dtype=np.uint8)
+             for c in (pay, short, punct)]
+    layout = enc.ColumnLayout(code.nb, code.z, pay, short, punct)
+    want = _table_syndromes(code, layout, [p & 1 for p in parts])
+    tparts = [torch.from_numpy(p) if p.size else None for p in parts]
+    np.testing.assert_array_equal(
+        enc.make_parts_encoder(code, layout)(*tparts).numpy(), want)
 
 
 def test_roll_direction():
@@ -359,6 +418,20 @@ def test_bad_encoder_parts_raise_before_a_launch(cpu_as_card, part, value,
         enc.make_parts_encoder(d["code"], d["layout"])(*parts)
 
 
+def test_encoder_refuses_a_circulant_wider_than_it_stages(cpu_as_card):
+    """z above MAX_Z raises before anything is built or launched."""
+    z = 2 * enc.MAX_Z
+    rows = np.zeros(1, np.int32)
+    code = QCCode(z=z, mb=1, nb=1, edge_row=rows, edge_col=rows,
+                  edge_shift=np.array([3], np.int32),
+                  row_edges=_group_edges(rows, 1),
+                  col_edges=_group_edges(rows, 1))
+    before = dict(enc.launches)
+    with pytest.raises(ValueError, match=f"z = {z} > {enc.MAX_Z}"):
+        enc.make_batch_encoder(code)(torch.zeros((1, z), dtype=torch.uint8))
+    assert enc.launches == before
+
+
 @pytest.mark.parametrize("name,value,match", [
     ("rx", lambda d: d["payload"].to(torch.int64), "rx must be"),
     ("rx", lambda d: d["payload"].T.contiguous().T, "contiguous"),
@@ -470,9 +543,12 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("module", [enc, wa], ids=["qc_encode", "pin_llr"])
 def test_bindings_match_the_kernel_source(module):
     """Every C entry point of the kernel's source is bound, with as many
-    argument types as it has parameters, and has a launch counter."""
+    argument types as it has parameters, and each that launches (all but
+    a ``_plan`` query) has a launch counter."""
     src = (_build._CSRC / f"{module.LIBRARY}.cu").read_text()
     entries = dict(re.findall(r'extern "C" int qtpu_(\w+)\(([^)]*)\)', src))
-    assert set(entries) == set(module._ARGTYPES) == set(module.launches)
+    assert set(entries) == set(module._ARGTYPES)
+    assert set(module.launches) == {n for n in entries
+                                    if not n.endswith("_plan")}
     for name, params in entries.items():
         assert len(params.split(",")) == len(module._ARGTYPES[name]), name
