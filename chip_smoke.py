@@ -116,15 +116,21 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     (B = 128) and flooding at phase 4's regular n = 4096 batch (B = 1024) —
     equals one unsharded launch (bits, iterations, converged), launches its
     kernel exactly 4 times per call, and 8 blocks of each equal the golden
-    model (``qtpu_torch.ldpc.golden``); both times;
+    model (``qtpu_torch.ldpc.golden``); a torch.profiler trace of one
+    sharded call puts its 4 launches on 4 distinct CUDA streams (each
+    shard's own, ``Mesh.run_shards``; the span from the first start to the
+    last end printed beside the kernels' summed time); the sharded and the
+    unsharded call's times side by side;
 14. mesh session: production_config(max_inflight_windows=1), Alice
     unsharded and Bob on a 4-shard mesh on this card, over BSC(3%) for 12
     windows, against an unsharded pair on the same input — identical
     non-empty keys, all four ledgers equal, every window's psum'd ledger
-    equal to its host metrics, >= 4 layered launches per window;
+    equal to its host metrics, >= 4 layered launches per window; the mesh
+    run's window ms beside the unsharded pair's;
 15. mesh stream PA: at the production flush shape the 4- and 8-shard
-    float64 flush equals the unsharded one, and the reference's float32
-    sharded flush (each shard's L = N/4 or N/8 bits unsegmented) prints its
+    float64 flush equals the unsharded one (with the device memory each
+    adds at its peak: its shards' FFTs overlap on their streams), and the
+    reference's float32 sharded flush (each shard's L = N/4 or N/8 bits unsegmented) prints its
     margin; then production_config(pa_mode="stream") with the mesh Bob for
     8 windows (>= 2 flushes): identical keys, ledger.final_bits == the
     emitted key bits;
@@ -169,7 +175,13 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     than PR 9's tree's 648.3, printed beside it, no int64 elementwise
     kernel and no ``roll`` launched once a window or more among the top
     kernels, which are printed).  The kernels line gains each kernel's
-    launches on these paths.
+    launches on these paths;
+19. the scaling curve: ``python -m qtpu_torch.scaling 8`` as a subprocess
+    on this card (the reference curve's workload, Bob's program on 1, 2, 4
+    and 8 shards of the card, then the isolated psum and sharded-decode
+    probes at each): exit 0, every point printed with equal keys and >= D
+    layered launches a timed window at D shards, the probes printed.  The
+    kernels line gains the layered launches a window at each D.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -1361,15 +1373,47 @@ def sharded_decode_phase(label, code, llr, syn, max_iters, alg, reps):
         assert np.array_equal(g.bits.reshape(-1), bits[b]) and \
             (g.iterations, g.converged) == (iters[b], conv[b]), \
             f"{label}: block {b} differs from golden"
+    streams, span_ms, busy_ms = kernel_streams(lambda: sharded(llr, syn),
+                                               f"{name}_kernel")
+    assert len(streams) == MESH_SHARDS and len(set(streams)) == MESH_SHARDS, \
+        f"{label}: the trace's {name} launches ran on streams {streams}"
     ms = time_cuda(lambda: sharded(llr, syn), reps)
     ms1 = time_cuda(lambda: single(llr, syn), reps)
     bound_ms, bound_by = decode_bound(code, B, int(iters.sum()))
     say(f"sharded {label}: {MESH_SHARDS} shards of {B // MESH_SHARDS} on "
         f"{dev} == one launch of B={B} (bits, iterations, converged), "
-        f"{per_call} {name} launches per call, 8 blocks == golden; "
+        f"{per_call} {name} launches per call, 8 blocks == golden; traced "
+        f"call: its {MESH_SHARDS} launches on streams {streams}, first start "
+        f"to last end {span_ms:.3f} ms for {busy_ms:.3f} ms of kernel time; "
         f"sharded_ms={ms:.3f} unsharded_ms={ms1:.3f} bound_ms="
         f"{bound_ms:.4f} ({bound_by}) share_of_bound {bound_ms / ms:.4f}")
     return per_call, ms, ms1
+
+
+def kernel_streams(fn, kernel):
+    """A torch.profiler trace of one ``fn()``: (the CUDA stream of each
+    launch of a kernel whose name holds ``kernel``, in launch order; ms
+    from the first such launch's start to the last one's end; their
+    summed ms).  The streams come from the trace's kernel events
+    (``args.stream`` of its Chrome trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "qtpu_torch" / "kernel_streams_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                     if e.get("cat") == "kernel" and kernel in e["name"]),
+                    key=lambda e: e["ts"])
+    path.unlink()
+    assert events, f"the trace holds no {kernel} launch"
+    span = max(e["ts"] + e["dur"] for e in events) - events[0]["ts"]
+    return ([e["args"]["stream"] for e in events], span / 1e3,
+            sum(e["dur"] for e in events) / 1e3)
 
 
 def check_gled(bob):
@@ -1413,7 +1457,8 @@ def mesh_session_phase(dev, cfg, windows, seed):
     assert [m.as_dict() for m in mets] == [m.as_dict() for m in bob1.metrics]
     say(f"mesh session: == the unsharded pair (keys, 4 ledgers, window "
         f"metrics) over {len(mets)} windows; gled == host metrics in every "
-        f"window; unsharded window_ms="
+        f"window; window_ms {MESH_SHARDS} shards "
+        f"{1e3 * timed[0] / timed[1]:.2f}, unsharded "
         f"{1e3 * timed1[0] / timed1[1]:.2f}")
     return launches
 
@@ -1458,11 +1503,15 @@ def sharded_flush_phase(dev, P, l_max):
         prng.derive(prng.root_key(1), "pa-stream", 0), (m + N - 1,))).to(dev)
     fk = pa.stream_toeplitz(t_dev, stream, m, segment=N // 2,
                             precision=torch.float64)
-    margins, times = {}, {}
+    margins, times, peak = {}, {}, {}
     for shards in (MESH_SHARDS, 2 * MESH_SHARDS):
         flush = make_stream_pa(make_mesh(devices=[dev] * shards), N, m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
         got = flush(t_dev, stream)
         assert torch.equal(got, fk), f"{shards}-shard flush != unsharded"
+        peak[shards] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
         times[shards] = time_cuda(lambda: flush(t_dev, stream), 1)
         margins[shards] = reference_sharded_margin(t_dev, stream, m, shards)
     one_ms = time_cuda(lambda: pa.stream_toeplitz(
@@ -1471,7 +1520,10 @@ def sharded_flush_phase(dev, P, l_max):
         f"({m / N:.3f} N): the {MESH_SHARDS}- and {2 * MESH_SHARDS}-shard "
         f"float64 flush == unsharded; flush_ms {MESH_SHARDS} shards "
         f"{times[MESH_SHARDS]:.2f}, {2 * MESH_SHARDS} shards "
-        f"{times[2 * MESH_SHARDS]:.2f}, unsharded {one_ms:.2f}; the "
+        f"{times[2 * MESH_SHARDS]:.2f}, unsharded {one_ms:.2f}; GB a "
+        f"flush adds at its peak: {MESH_SHARDS} shards "
+        f"{peak[MESH_SHARDS]:.2f}, {2 * MESH_SHARDS} shards "
+        f"{peak[2 * MESH_SHARDS]:.2f}; the "
         f"reference's float32 sharded flush, margin (exact only < 0.25): "
         f"L=N/{MESH_SHARDS} {margins[MESH_SHARDS]:.4f}, "
         f"L=N/{2 * MESH_SHARDS} {margins[2 * MESH_SHARDS]:.4f}")
@@ -1655,6 +1707,48 @@ def module_json(module, argv, timeout) -> tuple[dict, float]:
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     say(f"{module} {' '.join(argv)} ({wall:.1f} s): {json.dumps(out)}")
     return out, wall
+
+
+def scaling_phase(windows, timeout) -> dict:
+    """Phase 19: ``python -m qtpu_torch.scaling WINDOWS`` as a subprocess
+    on this card.  Every point printed, its keys equal and at least D
+    layered launches a timed window at D shards; the isolated probes
+    printed.  Returns {shards: layered launches a window}."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "qtpu_torch.scaling",
+                           str(windows)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t
+    assert proc.returncode == 0, \
+        f"qtpu_torch.scaling exited {proc.returncode}: {proc.stderr[-3000:]}"
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    rows = [ln for ln in lines if "shards" in ln]
+    probes = [ln for ln in lines if "probes" in ln]
+    assert [r["shards"] for r in rows] == [1, 2, 4, 8], rows
+    assert len(probes) == 1, probes
+    base = rows[0]["windows_per_s"]
+    for r in rows:
+        assert r["keys_equal"] and r["final_key_bits"] > 0, r
+        assert r["windows"] >= windows, r
+        assert r["bp_layered_per_window"] >= r["shards"], r
+        say(f"scaling D={r['shards']} on {r['devices']} card(s): "
+            f"{r['windows']} windows in {r['elapsed_s']:.4f} s, "
+            f"{r['windows_per_s']:.3f} windows/s "
+            f"({r['windows_per_s'] / base:.2f}x of D=1), "
+            f"{r['sifted_bits_per_s']:.0f} sifted bits/s, "
+            f"{r['bp_layered_per_window']:.3f} bp_layered launches a window, "
+            f"{r['final_key_bits']} equal key bits; {r['device']}; host "
+            f"{json.dumps(r['host'])}")
+    for p in probes[0]["probes"]:
+        say(f"scaling isolated D={p['shards']}: psum_ledger alone "
+            f"{p['psum_ms']:.4f} ms, sharded decode alone "
+            f"(B={probes[0]['blocks']}, rung {probes[0]['rung']}) "
+            f"{p['decode_ms']:.4f} ms")
+    say(f"scaling: {wall:.1f} s for the command")
+    return {r["shards"]: r["bp_layered_per_window"] for r in rows}
 
 
 def baseline_phase(dev) -> dict:
@@ -2296,6 +2390,9 @@ def main() -> int:
     say(f"measuring scripts: {time.perf_counter() - t:.1f} s; BP launches "
         f"{measured}")
 
+    # 19. the scaling curve, as a subprocess
+    scaling_launches = scaling_phase(8, timeout=300)
+
     def path_launches(kernel):
         return {f"launches_{name}": counts[kernel]
                 for name, counts in measured.items()}
@@ -2323,6 +2420,8 @@ def main() -> int:
         "launches_mesh_session": mesh_launches["bp_layered"],
         "launches_mesh_stream_pa_session": mst_launches["bp_layered"],
         "launches_two_processes": two_launches,
+        "launches_per_window_scaling": {str(d): n for d, n
+                                        in scaling_launches.items()},
         "launches_bench": {k: v["bp_layered"]
                            for k, v in bench_launches.items()},
         **path_launches("bp_layered"),

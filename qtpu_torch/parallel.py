@@ -20,8 +20,10 @@ card) starting at global shard ``first`` of ``size``; with a
 ``torch.distributed`` process group the sums end in an ``all_reduce`` over
 it.  PyTorch runs eagerly, so a "shard program" is the single-device code
 called once per local shard on that shard's device, with no host sync
-between the calls: shards on different cards overlap, shards on one card
-queue on its stream.
+between the calls (``Mesh.run_shards``).  Each CUDA shard runs on a
+stream of its own, so shards overlap on one card as on several: the
+counterpart of the reference's one SPMD program, whose shards run
+concurrently.
 
 The reference's float32 fault, not inherited here: its
 ``sharded_stream_toeplitz`` convolves each shard's whole slice
@@ -76,10 +78,96 @@ class Mesh:
         if not self.devices or last > self.size:
             raise ValueError(f"shards {self.first}..{last} do not fit a "
                              f"mesh of {self.size}")
+        self._streams: dict[int, torch.cuda.Stream] = {}
+        self._events: dict[tuple, torch.cuda.Event] = {}
 
     def local_shards(self) -> list[tuple[int, torch.device]]:
         """(global shard index, device) of every shard this process owns."""
         return list(enumerate(self.devices, self.first))
+
+    def stream(self, g: int) -> Optional[torch.cuda.Stream]:
+        """Local shard ``g``'s own CUDA stream on its device, made on first
+        use; None for a CPU shard."""
+        dev = self.devices[g - self.first]
+        if dev.type != "cuda":
+            return None
+        if g not in self._streams:
+            self._streams[g] = torch.cuda.Stream(dev)
+        return self._streams[g]
+
+    def _event(self, key: tuple) -> torch.cuda.Event:
+        """The mesh's CUDA event ``key``, made on first use.  Each call
+        records it anew; a wait takes the record that precedes it."""
+        if key not in self._events:
+            self._events[key] = torch.cuda.Event()
+        return self._events[key]
+
+    def run_shards(self, fn) -> list:
+        """``[fn(g, dev) for g, dev in self.local_shards()]``, each CUDA
+        shard's call on the shard's own stream, so that the shards of one
+        card run concurrently.
+
+        A shard's stream first waits for the work queued on the current
+        streams of its device and of the home device (``devices[0]``):
+        the inputs, such as Bob's arena, were written there.  After the
+        last call those current streams wait for every shard's stream, so
+        whatever reads the results (``torch.cat``, ``psum_ledger``) runs
+        after the shards, and every tensor a call returned is recorded on
+        its device's current stream, so that the caching allocator hands
+        out none of their memory before those reads are done.  CPU shards
+        are called in turn, as they always were."""
+        cards = {_index(d) for d in self.devices if d.type == "cuda"}
+        if not cards:
+            return [fn(g, dev) for g, dev in self.local_shards()]
+        home = _index(self.devices[0]) if self.devices[0].type == "cuda" \
+            else None
+        caller = {i: torch.cuda.current_stream(i) for i in cards}
+        for i in cards:
+            self._event(("fork", i)).record(caller[i])
+        device = torch.cuda.current_device()
+        outs = []
+        try:
+            for g, dev in self.local_shards():
+                s = self.stream(g)
+                if s is None:
+                    outs.append(fn(g, dev))
+                    continue
+                for i in {s.device_index, home} - {None}:
+                    s.wait_event(self._event(("fork", i)))
+                torch.cuda.set_stream(s)
+                try:
+                    outs.append(fn(g, dev))
+                finally:
+                    torch.cuda.set_stream(caller[s.device_index])
+        finally:
+            torch.cuda.set_device(device)
+        for g, out in zip(range(self.first, self.first + len(outs)), outs):
+            s = self.stream(g)
+            if s is None:
+                continue
+            done = self._event(("join", g))
+            done.record(s)
+            for i in {s.device_index, home} - {None}:
+                caller[i].wait_event(done)
+            for t in _tensors(out):
+                if t.is_cuda:
+                    t.record_stream(caller.get(t.device.index)
+                                    or torch.cuda.current_stream(t.device))
+        return outs
+
+
+def _index(dev: torch.device) -> int:
+    """A CUDA device's index (the current device's for a bare "cuda")."""
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def _tensors(out):
+    """The tensors in ``out``: a tensor, or tuples and lists of them."""
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, (tuple, list)):
+        for o in out:
+            yield from _tensors(o)
 
 
 def init_distributed(coordinator: Optional[str] = None,
@@ -150,7 +238,8 @@ def make_sharded_decoder(code, mesh: Mesh, max_iters: int = 50,
                          alg: str = "minsum", use_kernel: bool = True):
     """DP decode: ``(llr (B, n), syndrome (B, m)) -> BatchDecodeResult``
     with the block batch split into the mesh's ``size`` equal shards; each
-    local shard runs the single-device decoder on its device (the Hopper
+    local shard runs the single-device decoder on its device and stream
+    (``Mesh.run_shards``; the Hopper
     kernel on CUDA tensors; ``use_kernel=False`` runs the plain PyTorch
     decoder there instead), with no collectives.  The inputs are the whole
     batch; the result holds this process's shards' rows in global block
@@ -168,11 +257,13 @@ def make_sharded_decoder(code, mesh: Mesh, max_iters: int = 50,
             raise ValueError(f"batch {B} does not split into {mesh.size} "
                              f"shards")
         bl = B // mesh.size
-        parts = []
-        for g, dev in mesh.local_shards():
+
+        def shard(g, dev):
             rows = slice(g * bl, (g + 1) * bl)
-            parts.append(local(llr[rows].to(dev).contiguous(),
-                               syndrome[rows].to(dev).contiguous()))
+            return local(llr[rows].to(dev).contiguous(),
+                         syndrome[rows].to(dev).contiguous())
+
+        parts = mesh.run_shards(shard)
         home = mesh.devices[0]
         return BatchDecodeResult(*(torch.cat([p[i].to(home) for p in parts])
                                    for i in range(3)))
@@ -204,7 +295,8 @@ def make_stream_pa(mesh: Mesh, n_stream: int, m: int):
     """Sharded streaming privacy amplification (the session's stream-PA
     flush on a mesh): ``pa(t_bits (m + n_stream - 1,), stream (n_stream,))
     -> (m,) uint8`` on the first shard's device.  The stream splits into
-    the mesh's shards, each local shard hashes its slice on its device, the
+    the mesh's shards, each local shard hashes its slice on its device and
+    stream (``Mesh.run_shards``), the
     int32 counts sum over every shard, and the sum is taken mod 2.  Equal
     to ``qtpu_torch.pa.toeplitz_hash_golden``."""
     if n_stream % mesh.size:
@@ -213,9 +305,8 @@ def make_stream_pa(mesh: Mesh, n_stream: int, m: int):
     L = n_stream // mesh.size
 
     def pa(t_bits: torch.Tensor, stream: torch.Tensor) -> torch.Tensor:
-        counts = [sharded_stream_toeplitz(
-                      t_bits, stream[g * L:(g + 1) * L].to(dev), m, mesh, g)
-                  for g, dev in mesh.local_shards()]
+        counts = mesh.run_shards(lambda g, dev: sharded_stream_toeplitz(
+            t_bits, stream[g * L:(g + 1) * L].to(dev), m, mesh, g))
         return (psum_ledger(counts, mesh) & 1).to(torch.uint8)
 
     return pa

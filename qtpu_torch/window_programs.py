@@ -38,7 +38,8 @@ Bob's pins, mismatch count and LLRs (``qtpu_torch.window_assembly``,
 With a mesh (``qtpu_torch.parallel.Mesh``), ``bob`` runs the single-device
 body once per local shard on that shard's rows and device (protocol
 randomness folded by the GLOBAL block index, so sharding changes no bit),
-with no host sync between the shards, and adds the psum'd decode-stage
+with no host sync between the shards and each CUDA shard on a stream of
+its own (``Mesh.run_shards``), and adds the psum'd decode-stage
 ledger ``gled`` (BASELINE config 5); its pin mask comes back as uint8.
 ``retry``, ``retry_small`` and ``pa`` stay unsharded on ``device``.
 """
@@ -310,8 +311,8 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
             and device; results in shard order on ``device``, plus the
             psum'd ledger ``gled``."""
             s, k = int(header[1]), int(header[6])
-            outs, leds = [], []
-            for g, dev in mesh.local_shards():
+
+            def shard(g, dev):
                 r = slice(g * bl, (g + 1) * bl)
                 out = _bob_core(arena, header, test_alice[r].to(dev),
                                 short_alice[r].to(dev),
@@ -319,8 +320,9 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
                                 qmag, g * bl, dev)
                 base_t, per_ok_t, e_qber_t = ledger_parts[dev]
                 okc = out[4][:, 0].sum(dtype=torch.int32)
-                leds.append(base_t + (k + s) * bl * e_qber_t + okc * per_ok_t)
-                outs.append(out)
+                return out, base_t + (k + s) * bl * e_qber_t + okc * per_ok_t
+
+            outs, leds = zip(*mesh.run_shards(shard))
             hat, rx_orig, rx_pin, pinmask, stats = (
                 torch.cat([o[i].to(device) for o in outs]) for i in range(5))
             gled = psum_ledger(leds, mesh).to(device)

@@ -985,6 +985,113 @@ def test_sharded_decoder_on_card_matches_one_launch(dev, alg):
     _same(got, cuda_bp.make_cuda_decoder(code, 40, alg=alg)(llr, syn))
 
 
+def test_mesh_shards_run_on_streams_of_their_own(dev):
+    """A 4-shard mesh of one card runs each shard on a stream of its own
+    (4 distinct streams, none the caller's); a CPU mesh makes none."""
+    from qtpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=[dev] * 4)
+    seen = mesh.run_shards(lambda g, d: torch.cuda.current_stream(d))
+    ids = [s.cuda_stream for s in seen]
+    assert len(set(ids)) == 4
+    assert torch.cuda.current_stream(dev).cuda_stream not in ids
+    assert ids == [mesh.stream(g).cuda_stream for g in range(4)]
+    assert ids == [s.cuda_stream for s in mesh.run_shards(
+        lambda g, d: torch.cuda.current_stream(d))]
+    cpu = make_mesh(devices=["cpu"] * 4)
+    assert cpu.run_shards(lambda g, d: g) == [0, 1, 2, 3]
+    assert all(cpu.stream(g) is None for g in range(4)) and not cpu._streams
+
+
+def _bob_windows(dev, sets, B=64):
+    """Bob's program at B blocks of a regular n = 4096 code on a 4-shard
+    mesh of ``dev``, on a 1-shard mesh and unsharded, with ``sets`` windows
+    of its inputs (QBER 2-8%, Alice's outputs from the unsharded alice
+    program) over one arena."""
+    from qtpu_torch import prng
+    from qtpu_torch.parallel import make_mesh
+    from qtpu_torch.stream import DeviceStream
+    from qtpu_torch.window_programs import (choose_affine, make_header,
+                                            make_window_programs)
+    code = make_regular_code(4096)
+    pay, empty = np.arange(code.n, dtype=np.int64), np.zeros(0, np.int64)
+    progs = [make_window_programs(
+        code, pay, empty, empty, 40, "layered", 64, 128, batch=B, k_pb=8,
+        s_max=32, device=dev, mesh=m)
+        for m in (make_mesh(devices=[dev] * 4), make_mesh(devices=[dev]),
+                  None)]
+    rng = np.random.default_rng(9)
+    keys = rng.integers(0, 2, (sets, B * code.n), dtype=np.uint8)
+    qber = np.linspace(0.02, 0.08, sets)[:, None]
+    noisy = keys ^ (rng.random(keys.shape) < qber).astype(np.uint8)
+    sa, sb = DeviceStream(keys.size, device=dev), DeviceStream(
+        keys.size, device=dev)
+    sa.push(keys.reshape(-1))
+    sb.push(noisy.reshape(-1))
+    a, ainv = choose_affine(iter([7]), code.n)
+    inputs = []
+    for w in range(sets):
+        wkey = prng.key_data(prng.derive(prng.root_key(3), "win", w))
+        pkey = prng.key_data(prng.derive(prng.root_key(7), "punct", w))
+        hdr = dict(test_bits_pb=8, affine=(a, ainv, 3))
+        _, syn, hashes, test, short = progs[2].alice(
+            sa.arena, make_header(w * B * code.n, 0, wkey, pkey, **hdr))
+        inputs.append((make_header(w * B * code.n, 0, wkey, **hdr),
+                       (test, short, syn, hashes)))
+    return progs, sb.arena, inputs
+
+
+@pytest.mark.parametrize("what", ["layered", "minsum", "bob_program"])
+def test_mesh_on_card_race_probe(dev, what):
+    """50 calls back to back of the 4-shard sharded decoder (or mesh bob
+    program) on one card, each on inputs reallocated for the call (and the
+    freed inputs' memory written over on the caller's stream at once), ==
+    the unsharded call on the same inputs: the shard streams' joins and
+    the allocator's reuse across streams must never let a call read or
+    return another's memory.  The bob program's psum'd ledger == a
+    1-shard mesh's."""
+    from qtpu_torch.parallel import make_mesh, make_sharded_decoder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sets = 4
+    if what == "bob_program":
+        progs, arena, inputs = _bob_windows(dev, sets)
+        qmag = np.float32(np.log(0.98 / 0.02))
+        want = [progs[2].bob(arena, h, *x, qmag) for h, x in inputs]
+        want_gled = [progs[1].bob(arena, h, *x, qmag)[5] for h, x in inputs]
+
+        def call(i):
+            h, x = inputs[i % sets]
+            fresh = [t.clone() for t in x]
+            out = progs[0].bob(arena, h, *fresh, qmag)
+            del fresh
+            _scribble = [torch.full_like(t, 1) for t in x]
+            return out
+    else:
+        code = make_rate_ladder(4096, family="mixed", alg=what).steps[1].code
+        inputs = [_inputs(code, np.linspace(0.005, 0.06 + 0.01 * i, 32), i,
+                          dev) for i in range(sets)]
+        single = cuda_bp.make_cuda_decoder(code, 40, alg=what)
+        want = [single(*x) for x in inputs]
+        sharded = make_sharded_decoder(code, make_mesh(devices=[dev] * 4),
+                                       40, what)
+
+        def call(i):
+            fresh = [t.clone() for t in inputs[i % sets]]
+            out = sharded(*fresh)
+            del fresh
+            _scribble = [torch.full_like(t, 1) for t in inputs[i % sets]]
+            return out
+    got = [call(i) for i in range(50)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        ref = want[i % sets]
+        if what == "bob_program":
+            for a, b in zip(out[:5], ref):
+                assert torch.equal(a, b.to(a.dtype)), f"call {i}"
+            assert torch.equal(out[5], want_gled[i % sets]), f"call {i}"
+        else:
+            _same(out, ref)
+
+
 def _mesh_cfg(**kw):
     return PipelineConfig(n=1024, blocks_per_window=8, qber_test_bits=512,
                           max_inflight_windows=1, **kw)
