@@ -6,9 +6,10 @@
 Phases (each prints one flushed line; any failure ends the run non-zero):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both BP kernels, the threefry kernel, the syndrome encoder and
-   the pin/LLR kernel from qtpu_torch/csrc/, one nvcc each, in parallel,
-   with each kernel entry's registers and spills (-Xptxas -v);
+2. build: both BP kernels, the threefry kernel, the syndrome encoder, the
+   pin/LLR kernel and the verify kernel from qtpu_torch/csrc/, one nvcc
+   each, in parallel, with each kernel entry's registers and spills
+   (-Xptxas -v);
 3. layered kernel vs its plain PyTorch decoder, bits / iterations /
    converged equal, at a production native3 rung (n = 65536, B = 128 and
    B = 8), at every native3 rung of n = 65536 at B = 8 (the cluster size
@@ -73,6 +74,26 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    rows, every timed shape above and every n = 4096 rung, each with the
    launch it makes (body, grid, threads, shared memory a CTA, stages,
    column groups);
+5d. verify: both entry points of ``qtpu_torch/csrc/verify.cu`` (the verify
+   hash; Bob's decode tail: payload extract, pin merge, hash check, error
+   count and each retry's merge) == their plain PyTorch versions bit for
+   bit: hash and the first decode's tail at every production rung (B =
+   128), timed at the first, the 3%-prior and the last rung; a shard's
+   32 rows (== the unsharded call's rows, timed); retry_small's 1 and 8
+   rows (timed) and retry_program's merge at B = 128 with 11 failed rows
+   (timed); every input one byte off alignment (hash, tail at B = 128
+   and at 8 rows); z = 24 and 10 in each mode, aligned and one byte off;
+   every rung of the n = 4096 mixed ladder at B = 1024 (z = 16); Vh = 1,
+   31 and 33; each timed shape's call time, device time (a CUDA-graph
+   replay; a profiler trace for the retries, whose row map is uploaded a
+   call), plain time and bound (bytes at 3.35 TB/s, or a funnel shift
+   and a three-input AND-XOR a row word and hash bit on the INT32 pipe);
+   the hash's library call is the float32 cuBLAS chain it replaces,
+   timed on the same inputs.  A profiler trace of alice, bob,
+   retry_program and retry_small at the 3%-prior rung shows each
+   launching the verify kernel and no GEMM.  The traces run after phase
+   19: a torch.profiler session before phase 13's one-call trace left
+   that trace without its kernels;
 6. session: production_config(), Alice and Bob on this card over a direct
    link, fed a BSC(3%) stream generated on the card, for 20 windows —
    identical non-empty keys, equal ledgers, FER <= 0.05, a rung switch, a
@@ -83,7 +104,9 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    and no plain int64 threefry op and no key fill run; the
    encoder, pin_llr and the retries' llr launched (per window printed),
    and no plain encoder or pin/LLR assembly run, every encoder launch
-   with 16-byte aligned parts (the bulk body);
+   with 16-byte aligned parts (the bulk body); the verify hash and tail
+   launched (per window printed), the tail in a retry mode in a retried
+   window, and no plain hash or tail run;
 7. min-sum session: n = 4096 mixed ladder, flooding decoder, B = 1024, the
    same checks, only the flooding kernel launched, and the encoder and
    pin_llr launched (per window printed);
@@ -138,7 +161,8 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     card, joined by ``init_distributed(backend="gloo")``, each owning 2 of
     4 shards of Bob's program at phase 3's rung (B = 128): both psum'd
     ledgers equal each other and the one-process 4-shard program's on the
-    same window, and each rank launched pin_llr once a shard;
+    same window, and each rank launched pin_llr and the verify tail once
+   a shard;
 17. the bench: ``python -m qtpu_torch.cli bench`` as a subprocess on this
     card (the decoder alone, the copy bandwidth, both parties on the card,
     Bob's replayed session three times each, the events -> key chain, the
@@ -147,10 +171,10 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     are clean, the two-party FER <= 0.05, every decode-alone block
     converged, the measured copy bandwidth is below 1.05 x 3,350 GB/s, and
     its ``bench launches`` line shows the layered kernel launched by every
-    measurement and the threefry kernel's two entry points and pin_llr
-    by both parties' and Bob's sessions (the BSC stream, the window
-    programs), the encoder by both parties'; the bound of its decode-alone
-    call, from the iterations
+    measurement, the threefry kernel's two entry points, pin_llr and the
+    verify tail by both parties' and Bob's sessions (the BSC stream, the
+    window programs), the encoder and the verify hash by both parties';
+    the bound of its decode-alone call, from the iterations
     the bench's own call reported, equals phase 3's on the same inputs and
     is printed with the share of bound.  The line is printed;
 18. the measuring scripts as subprocesses on this card, each JSON line
@@ -192,6 +216,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -292,13 +317,14 @@ def ptxas_summary(log: str) -> list:
         if m:
             t = re.search(r"ILi(\d+)ELb([01])E(?:Li(\d+)ELi(\d+)E)?",
                           m.group(1))
-            plain = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILb([01])EE)?E",
+            plain = re.search(r"\d([a-z][a-z_]*_kernel)(I(?:L[bi]\d+E)+E)?E",
                               m.group(1))
             layout = "cluster" if t and t.group(2) == "1" else "one CTA"
             if plain:
-                plain = plain.group(1) + ("" if plain.group(2) is None else
-                                          ("<false>", "<true>")[
-                                              int(plain.group(2))])
+                args = re.findall(r"L([bi])(\d+)E", plain.group(2) or "")
+                plain = plain.group(1) + ("<" + ", ".join(
+                    ("false", "true")[int(v)] if k == "b" else v
+                    for k, v in args) + ">" if args else "")
             name = ((plain or m.group(1)) if not t else
                     f"<dmax {t.group(1)}, {layout}>" if t.group(3) is None
                     else f"<dmax {t.group(1)}, {layout}, {t.group(3)} "
@@ -1003,6 +1029,314 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
     return out
 
 
+def verify_bound(nbytes, hashed):
+    """The least time the card could take for ``nbytes`` of traffic and,
+    for each of ``hashed`` (row word, hash bit) pairs, one funnel shift
+    and one three-input AND-XOR (LOP3) on the INT32 pipe: (ms, "bytes" or
+    "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * hashed / ALU_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def hash_bound(b, P, vh):
+    """``verify_bound`` of a hash of b rows: the rows and the seed read
+    once, the hashes written once."""
+    return verify_bound(b * P + (P + vh - 1) + b * vh, b * -(-P // 32) * vh)
+
+
+def tail_bound(layout, b, B, vh, mode, merged=None):
+    """``verify_bound`` of a tail: each merged row reads its payload
+    columns of the bits, rx_pin, the pin mask, rx_orig, its expected hash,
+    flag, iterations and mismatch or old stats, and writes hat and stats;
+    a retry's other rows read and write hat and stats (retry_program also
+    reads their iterations); the seed, the column table and the row map
+    once."""
+    P = layout.widths[0] * layout.z
+    merged = b if merged is None else merged
+    row = 5 * P + vh + 1 + 4 + 16 + (4 if mode == "first" else 16)
+    kept = 0 if mode == "first" else (B - merged) * (2 * P + 32 + (
+        4 if mode == "retry" else 0))
+    nbytes = (merged * row + kept + (P + vh - 1) + 8 * layout.nb
+              + (0 if mode == "first" else 4 * B))
+    return verify_bound(nbytes, merged * -(-P // 32) * vh)
+
+
+def trace_ms(fn, reps, kernel="verify_kernel"):
+    """Device ms of one ``fn()`` from a torch.profiler trace of ``reps``
+    calls: the mean time of the kernels named ``kernel`` in them."""
+    import torch
+    from qtpu_torch.profiling import device_trace
+    fn()
+    torch.cuda.synchronize()
+    with device_trace(torch.device("cuda", 0)) as tr:
+        for _ in range(3):      # the profiler may miss its first launches
+            fn()
+        with tr.region("timed"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    found = [k for k in tr.part("timed").kernels if kernel in k[0]]
+    assert 0 < len(found) <= reps, (len(found), reps)
+    return sum(e - s for _, s, e in found) / 1e3 / len(found)
+
+
+def program_kernels(dev, probe, rung):
+    """The CUDA kernels alice, bob, retry_program (11 failed rows) and
+    retry_small (8 rows) launch at ``rung`` of ``probe``'s ladder, from a
+    torch.profiler trace of one window's calls: {program: kernel names}."""
+    import numpy as np
+    import torch
+    from qtpu_torch.profiling import device_trace
+    from qtpu_torch.window_programs import make_header
+    prog = probe.programs(rung)
+    B, P = probe.config.blocks_per_window, probe.payload_per_block(rung)
+    rng = np.random.default_rng(58)
+    a_bits = rng.integers(0, 2, B * P, dtype=np.uint8)
+    b_bits = a_bits ^ (rng.random(B * P) < QBER).astype(np.uint8)
+    hdr = dict(test_bits_pb=prog.k_pb, affine=probe._affine_for(0, P))
+    s = prog.s_max // 2
+    alice = (lambda: prog.alice(torch.from_numpy(a_bits).to(dev),
+                                make_header(0, s, [1, 2], [3, 4], **hdr)))
+    payload, syn, hashes, test, short = alice()
+    arena = torch.from_numpy(b_bits).to(dev)
+    header = make_header(0, s, [1, 2], **hdr)
+    mag = np.float32(np.log((1 - QBER) / QBER))
+    bob = (lambda: prog.bob(arena, header, test, short, syn, hashes, mag))
+    hat, rx_orig, rx_pin, pinmask, stats = bob()
+    positions = np.sort(rng.choice(P, prog.retry_bits, replace=False)
+                        ).astype(np.int32)
+    bits = prog.retry_gather(payload, positions)
+    failed = np.zeros(B, np.uint8)
+    failed[rng.choice(B, 11, replace=False)] = 1
+    rows = np.flatnonzero(failed)[:8].astype(np.int32)
+    common = (arena, header, rx_orig, rx_pin, pinmask, hat, stats)
+    calls = {
+        "alice_program": alice, "bob_program": bob,
+        "retry_program": lambda: prog.retry(*common, failed, positions, bits,
+                                            syn, hashes, mag),
+        "retry_small": lambda: prog.retry_small(
+            *common, rows, np.ones(8, np.uint8), positions, bits, syn,
+            hashes, mag)}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with device_trace(dev) as tr:
+        for fn in calls.values():   # the profiler may miss its first launches
+            fn()
+        torch.cuda.synchronize()
+        for name, fn in calls.items():
+            with tr.region(name):
+                fn()
+                torch.cuda.synchronize()
+    return {name: [k[0] for k in tr.part(name).kernels] for name in calls}
+
+
+def verify_phase(dev, cfg, probe, ms_probe) -> dict:
+    """Phase 5d: both entry points of ``qtpu_torch/csrc/verify.cu`` ==
+    their plain versions on the card, bit for bit, at the main path's
+    shapes (``probe``: a BobSession of ``cfg``; ``ms_probe``: of the mixed
+    n = 4096 ladder), each tail mode; timed at the first, the 3%-prior
+    and the last rung, a shard's rows and each retry's merge.  Returns
+    {"hash", "tail", "tail_off", "tail_shard", "retry", "retry_small":
+    Draw, "hash_chain": (call ms, device ms), "hash_tail_max_err": int}."""
+    import numpy as np
+    import torch
+    from qtpu_torch import window_verify as wv
+    g = torch.Generator(device=dev).manual_seed(57)
+    out = {"untraced": {}}
+    vh = cfg.verify_hash_bits
+
+    def bits(*shape):
+        return torch.randint(0, 2, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+
+    def inputs(layout, b, B):
+        """A decode's tail arguments (b decoded rows, 5% pins, 90%
+        converged) in a window of B rows whose expected hashes are the
+        decode's own on every other row and one bit off elsewhere."""
+        P = layout.widths[0] * layout.z
+        args = dict(bits=bits(b, layout.nb * layout.z), rx_pin=bits(b, P),
+                    pin=torch.rand((b, P), generator=g, device=dev) < 0.05,
+                    rx_orig=bits(B, P), seed=bits(P + vh - 1),
+                    converged=torch.rand(b, generator=g, device=dev) < 0.9,
+                    iterations=torch.randint(1, 60, (b,), generator=g,
+                                             device=dev, dtype=torch.int32),
+                    layout=layout)
+        hat, _ = wv.tail_plain(**dict(args, rx_orig=args["rx_orig"][:b]),
+                               exp_hashes=bits(b, vh),
+                               mism=torch.zeros(b, dtype=torch.int32,
+                                                device=dev))
+        exp = bits(B, vh)
+        exp[:b] = wv.hash_plain(hat, args["seed"])
+        exp[1:b:2, 0] ^= 1
+        return dict(args, exp_hashes=exp)
+
+    def merge(mode, b, B, P):
+        if mode == "first":
+            return dict(mism=torch.randint(0, 9, (b,), generator=g,
+                                           device=dev, dtype=torch.int32))
+        old = torch.randint(0, 60, (B, 4), generator=g, device=dev,
+                            dtype=torch.int32)
+        pick = torch.randperm(B, generator=g, device=dev).cpu().numpy()
+        if mode == "retry":
+            failed = np.zeros(B, bool)
+            failed[pick[:11]] = True
+            return dict(hat=bits(B, P), stats=old, failed=failed)
+        return dict(hat=bits(B, P), stats=old, rows=pick[:b])
+
+    def off(d):
+        return {k: one_byte_off(v) if isinstance(v, torch.Tensor) else v
+                for k, v in d.items()}
+
+    def hold_tail(label, layout, mode, b, B, moved=False, reps=0):
+        P = layout.widths[0] * layout.z
+        args, m = inputs(layout, b, B), merge(mode, b, B, P)
+        if moved:
+            args, m = off(args), off(m)
+        merged = 11 if mode == "retry" else None
+        d = hold_kernel("verify_tail", f"{mode} {label}",
+                        lambda: wv.tail(**args, **m),
+                        lambda: wv.tail_plain(**args, **m),
+                        tail_bound(layout, b, B, vh, mode, merged),
+                        reps if mode == "first" else 0)
+        if reps and mode != "first":
+            # The retries upload their row map a call (no graph capture):
+            # their device time comes from a profiler trace, taken after
+            # phase 13 (``verify_traced_phase``).
+            t = time.perf_counter()
+            wv.tail_plain(**args, **m)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t)
+            ms = time_cuda(lambda: wv.tail(**args, **m), reps)
+            out["untraced"][mode] = (f"{mode} {label}",
+                                     lambda: wv.tail(**args, **m), reps,
+                                     Draw(0, ms, 0.0, plain_ms, *tail_bound(
+                                         layout, b, B, vh, mode, merged)))
+        return d, args
+
+    def hold_hash(label, x, seed, reps=0):
+        b, P = x.shape
+        return hold_kernel("verify_hash", label, lambda: wv.hash(x, seed),
+                           lambda: wv.hash_plain(x, seed),
+                           hash_bound(b, P, seed.numel() - P + 1), reps)
+
+    B = cfg.blocks_per_window
+    rung = prior_rung(cfg, dev)
+    last = len(probe.ladder.steps) - 1
+    for r, st in enumerate(probe.ladder.steps):
+        _, layout = window_layout(probe, r)
+        reps = 20 if r in (0, rung, last) else 0
+        d, args = hold_tail(f"rung {r} ({st.name}) B={B}", layout, "first",
+                            B, B, reps=reps)
+        x = args["rx_orig"]
+        h = hold_hash(f"rung {r} ({st.name}) B={B}", x, args["seed"], reps)
+        if r == rung:
+            out["tail"], out["hash"], r_layout, r_args = d, h, layout, args
+            chain = (lambda: wv.hash_plain(x, args["seed"]))
+            out["hash_chain"] = (time_cuda(chain, 20), graph_ms(chain, 20))
+            say(f"verify_hash rung {r} B={B}: the float32 cuBLAS chain it "
+                f"replaces (hash_plain: unfold, casts, matmul, & 1) "
+                f"call_ms={out['hash_chain'][0]:.4f} device_ms="
+                f"{out['hash_chain'][1]:.4f}; the kernel's device_ms="
+                f"{h.device_ms:.4f}")
+    say(f"verify: every rung of the production ladder at B={B} == plain "
+        f"(hash, first decode's tail)")
+    # 4 shards' rows: the first shard timed, each == the unsharded rows.
+    bl = B // MESH_SHARDS
+    first = dict(mism=torch.randint(0, 9, (B,), generator=g, device=dev,
+                                    dtype=torch.int32))
+    full = wv.tail(**r_args, **first)
+    for sh in range(MESH_SHARDS):
+        rows = slice(sh * bl, (sh + 1) * bl)
+        part = {k: (v[rows].contiguous() if isinstance(v, torch.Tensor)
+                    and v.dim() and k != "seed" else v)
+                for k, v in r_args.items()}
+        m = dict(mism=first["mism"][rows].contiguous())
+        d = hold_kernel("verify_tail", f"first shard {sh} rows {sh * bl}.. "
+                        f"B={bl}", lambda: wv.tail(**part, **m),
+                        lambda: wv.tail_plain(**part, **m),
+                        tail_bound(r_layout, bl, bl, vh, "first"),
+                        20 if sh == 0 else 0)
+        if sh == 0:
+            out["tail_shard"] = d
+        for x, y in zip(wv.tail(**part, **m), full):
+            assert torch.equal(x, y[rows]), f"shard {sh}: != unsharded rows"
+    say(f"verify: {MESH_SHARDS} shards' rows (b = {bl}) == plain and == "
+        f"the unsharded call's rows")
+    # The retries' merges, timed; retry_small at 1 row too.
+    hold_tail(f"rung {rung} B={B}, 11 failed", r_layout, "retry", B, B,
+              reps=20)
+    hold_tail(f"rung {rung} 8 rows of B={B}", r_layout, "retry_small", 8, B,
+              reps=20)
+    hold_tail(f"rung {rung} 1 row of B={B}", r_layout, "retry_small", 1, B)
+    # Every input one byte off alignment.
+    out["tail_off"] = hold_tail(f"rung {rung} B={B}, every input one byte "
+                                f"off alignment", r_layout, "first", B, B,
+                                moved=True, reps=20)[0]
+    hold_tail(f"rung {rung} 8 rows, every input one byte off",
+              r_layout, "retry_small", 8, B, moved=True)
+    hold_tail(f"rung {rung} B={B}, every input one byte off", r_layout,
+              "retry", B, B, moved=True)
+    hold_hash(f"rung {rung} B={B}, x and seed one byte off",
+              one_byte_off(r_args["rx_orig"]), one_byte_off(r_args["seed"]),
+              20)
+    for h_bits in (1, 31, 33):
+        P = r_layout.widths[0] * r_layout.z
+        hold_hash(f"rung {rung} B={B} Vh={h_bits}", r_args["rx_orig"],
+                  bits(P + h_bits - 1))
+    # z = 24 and 10 (P not a multiple of 32), every mode.
+    from qtpu_torch.ldpc.encode import ColumnLayout
+    for lay in (ColumnLayout(8, 24, [0, 2, 3, 5, 6, 7], [1], [4]),
+                ColumnLayout(24, 10, list(range(2, 24)), [0], [1])):
+        for moved in (False, True):
+            label = f"z={lay.z}" + (", one byte off" if moved else "")
+            for mode, b in (("first", B), ("retry", B), ("retry_small", 8)):
+                hold_tail(f"{label} b={b}", lay, mode, b, B, moved=moved)
+            x = bits(B, lay.widths[0] * lay.z)
+            seed = bits(lay.widths[0] * lay.z + vh - 1)
+            hold_hash(f"{label} B={B}", one_byte_off(x) if moved else x,
+                      one_byte_off(seed) if moved else seed)
+    say(f"verify: z = 24 and 10 at B={B}, every mode, aligned and one byte "
+        f"off == plain")
+    # The mixed n = 4096 ladder at B = 1024 (z = 16: a word spans two
+    # columns): the min-sum sessions' and the chain's tails.
+    mB = ms_probe.config.blocks_per_window
+    for r, st in enumerate(ms_probe.ladder.steps):
+        _, layout = window_layout(ms_probe, r)
+        _, args = hold_tail(f"n=4096 mixed rung {r} ({st.name}) B={mB}",
+                            layout, "first", mB, mB)
+        if r == 0:
+            hold_hash(f"n=4096 mixed rung 0 B={mB}", args["rx_orig"],
+                      args["seed"])
+    say(f"verify: every rung of the n = 4096 mixed ladder at B={mB} == plain")
+    return out
+
+
+def verify_traced_phase(dev, cfg, probe, verified) -> None:
+    """Phase 5d's traced part, run after phase 19 (a profiler session
+    before phase 13's one-call trace leaves that trace without its
+    kernels): the retries' device time from a torch.profiler trace (into
+    ``verified["retry"]`` and ``["retry_small"]``), and a trace of alice,
+    bob, retry_program and retry_small at the 3%-prior rung launching the
+    verify kernel once each and no GEMM."""
+    for mode, (label, fn, reps, d) in verified.pop("untraced").items():
+        dev_ms = trace_ms(fn, reps)
+        say(f"verify_tail {label}: == plain; kernel_ms={d.ms:.4f} "
+            f"device_ms={dev_ms:.4f} (trace) plain_ms={d.plain_ms:.2f} "
+            f"bound_ms={d.bound_ms:.5f} ({d.bound_by}) share_of_bound "
+            f"{d.bound_ms / dev_ms:.4f} (device) library_ms=null")
+        verified[mode] = d._replace(device_ms=dev_ms)
+    rung = prior_rung(cfg, dev)
+    for name, kernels in program_kernels(dev, probe, rung).items():
+        gemm = [k for k in kernels if re.search(GEMM_KERNEL, k)]
+        n_verify = sum("verify_kernel" in k for k in kernels)
+        assert n_verify == 1 and not gemm, (name, n_verify, gemm)
+        say(f"verify: {name} at rung {rung} launched the verify kernel "
+            f"once and no GEMM ({len(kernels)} kernels)")
+
+
 def one_byte_off(t):
     """A contiguous copy of ``t`` whose storage starts one byte past an
     aligned address."""
@@ -1012,29 +1346,35 @@ def one_byte_off(t):
     return buf[1:].view(t.shape)
 
 
-def window_kernel_launches(launches: dict) -> tuple[int, int]:
-    """(qc_encode, pin_llr + llr) launches of a path."""
+def window_kernel_launches(launches: dict) -> tuple[int, int, int]:
+    """(qc_encode, pin_llr + llr, verify_hash + verify_tail) launches of a
+    path."""
     return (launches.get("qc_encode", 0),
-            launches.get("pin_llr", 0) + launches.get("llr", 0))
+            launches.get("pin_llr", 0) + launches.get("llr", 0),
+            launches.get("verify_hash", 0) + launches.get("verify_tail", 0))
 
 
 def _counters():
     from qtpu_torch import random as tr
     from qtpu_torch import window_assembly as wa
+    from qtpu_torch import window_verify as wv
     from qtpu_torch.ldpc import cuda_bp
     from qtpu_torch.ldpc import encode as enc
-    return cuda_bp.launches, tr.launches, enc.launches, wa.launches
+    return cuda_bp.launches, tr.launches, enc.launches, wa.launches, \
+        wv.launches
 
 
 def check_window_kernels(label, launches, windows, retried=False) -> dict:
-    """A path launched the encoder and the pin/LLR kernel (and, where it
-    ``retried``, the retries' LLR entry point); prints and returns their
-    launches a window."""
-    names = ("qc_encode", "pin_llr") + (("llr",) if retried else ())
+    """A path launched the encoder, the pin/LLR kernel and both verify
+    entry points (and, where it ``retried``, the retries' LLR entry point);
+    prints and returns their launches a window."""
+    names = ("qc_encode", "pin_llr", "verify_hash", "verify_tail") + (
+        ("llr",) if retried else ())
     for name in names:
         assert launches[name] > 0, f"{label} never launched {name}"
     per = {k: round(launches[k] / windows, 3)
-           for k in ("qc_encode", "pin_llr", "llr")}
+           for k in ("qc_encode", "pin_llr", "llr", "verify_hash",
+                     "verify_tail")}
     say(f"{label} window-kernel launches a window over {windows} windows: "
         f"{per}")
     return per
@@ -1050,8 +1390,8 @@ def reset_launches():
 
 
 def read_launches() -> dict:
-    """The BP kernels', the threefry entry points', the encoder's and the
-    pin/LLR entry points' launches."""
+    """The BP kernels', the threefry entry points', the encoder's, the
+    pin/LLR and the verify entry points' launches."""
     import torch
     torch.cuda.synchronize()
     return {k: v for counts in _counters() for k, v in counts.items()}
@@ -1447,6 +1787,7 @@ def mesh_session_phase(dev, cfg, windows, seed):
                          "bp_layered")
     check_gled(bob)
     assert launches["bp_layered"] >= MESH_SHARDS * len(mets), launches
+    assert launches["verify_tail"] >= MESH_SHARDS * len(mets), launches
     alice1, bob1, timed1 = run_session(cfg, a_src, b_src, dev, windows,
                                        feed_chunk=1 << 23)
     key = bob.final_key_bits()
@@ -1596,7 +1937,8 @@ def mesh_worker(rank: int, port: int) -> int:
 def two_process_phase(dev, timeout):
     """Phase 16: two ``--mesh-worker`` processes on this card against the
     one-process 4-shard program; returns the ranks' summed launches (the
-    layered kernel's, the threefry entry points', (qc_encode, pin_llr))."""
+    layered kernel's, the threefry entry points', (qc_encode, pin_llr,
+    verify))."""
     import os
     import socket
     from qtpu_torch.parallel import make_mesh
@@ -1633,6 +1975,8 @@ def two_process_phase(dev, timeout):
         assert o["stats"] == stats[o["first"] * bl:
                                    (o["first"] + MESH_SHARDS // 2) * bl]
         assert o["launches"]["bp_layered"] == MESH_SHARDS // 2, o["launches"]
+        assert o["launches"]["verify_tail"] == MESH_SHARDS // 2, \
+            o["launches"]
     launches = sum(o["launches"]["bp_layered"] for o in outs)
     threefry = sum(threefry_launches(o["launches"]) for o in outs)
     assert all(o["launches"]["threefry_draws"] > 0 for o in outs), outs
@@ -1644,7 +1988,8 @@ def two_process_phase(dev, timeout):
         f"{MESH_SHARDS // 2} of {MESH_SHARDS} shards on {dev}; psum'd "
         f"ledger {gled} on both == the one-process program's; stats rows "
         f"equal; {launches} bp_layered, {threefry} threefry, {window[0]} "
-        f"qc_encode and {window[1]} pin_llr launches; {wall:.1f} s for both")
+        f"qc_encode, {window[1]} pin_llr and {window[2]} verify launches; "
+        f"{wall:.1f} s for both")
     return launches, threefry, window
 
 
@@ -1677,9 +2022,11 @@ def bench_phase(timeout, code, decode):
     for name, counts in launches.items():
         assert counts["bp_layered"] > 0, f"bench {name}: no bp_layered"
     for name in ("full_chain", "per_chip"):
-        for entry in ("threefry_draws", "threefry_hash", "pin_llr"):
+        for entry in ("threefry_draws", "threefry_hash", "pin_llr",
+                      "verify_tail"):
             assert launches[name][entry] > 0, f"bench {name}: no {entry}"
-    assert launches["full_chain"]["qc_encode"] > 0, launches["full_chain"]
+    for entry in ("qc_encode", "verify_hash"):
+        assert launches["full_chain"][entry] > 0, launches["full_chain"]
     bound_ms, bound_by = decode_bound(code, x["decode_blocks"],
                                       x["decode_iterations_sum"])
     assert (bound_ms, bound_by) == (decode.bound_ms, decode.bound_by), \
@@ -1889,6 +2236,8 @@ def torch_equal(got, ref) -> bool:
 # encoder launched once a base edge (the stream's arena compaction rolls
 # once in ~15 production windows).
 INT64_THREEFRY_OP = r"Bitwise(Xor|Or)Functor<long>"
+# Kernel names of cuBLAS's matrix products (the plain verify hash's).
+GEMM_KERNEL = r"(?i)gemm|gemv|splitk|cutlass|xmma"
 ROLL_OP = r"roll_cuda_kernel"
 # Launches a call of the programs whose eager op chains have kernels now
 # (PR 9's tree: alice 352, bob 61, retry_small 44), and a two-party
@@ -1965,6 +2314,7 @@ def main() -> int:
     from qtpu_torch import _build
     from qtpu_torch import random as tr
     from qtpu_torch import window_assembly as wa
+    from qtpu_torch import window_verify as wv
     from qtpu_torch.chain import ChainConfig
     from qtpu_torch.ldpc import cuda_bp
     from qtpu_torch.ldpc import encode as enc
@@ -1983,7 +2333,7 @@ def main() -> int:
     # 2. build, one nvcc per source, in parallel
     t = time.perf_counter()
     libraries = (*cuda_bp.KERNELS.values(), tr.LIBRARY, enc.LIBRARY,
-                 wa.LIBRARY)
+                 wa.LIBRARY, wv.LIBRARY)
     _build.build(*libraries)
     dt = time.perf_counter() - t
     for name in libraries:
@@ -2139,9 +2489,11 @@ def main() -> int:
     ms_cfg = PipelineConfig(n=4096, family="mixed", alg="minsum",
                             blocks_per_window=1024, qber_test_bits=8192,
                             stream_capacity_bits=1 << 25)
-    assembled = window_kernels_phase(
-        dev, cfg, probe,
-        BobSession(ms_cfg, 0x5E55, make_direct_pair()[1], device=dev))
+    ms_probe = BobSession(ms_cfg, 0x5E55, make_direct_pair()[1], device=dev)
+    assembled = window_kernels_phase(dev, cfg, probe, ms_probe)
+
+    # 5d. the verify hash and decode tail vs their plain versions
+    verified = verify_phase(dev, cfg, probe, ms_probe)
 
     # 6. the production session on this card
     a_src, b_src = bsc_on_card(
@@ -2160,7 +2512,8 @@ def main() -> int:
     # pin/LLR assembly on the card's main path.
     plain_fns = [(tr, "_threefry2x32"), (tr, "key_from_data"),
                  (enc, "encode_plain"), (enc, "encode_parts_plain"),
-                 (wa, "pin_llr_plain"), (wa, "llr_plain")]
+                 (wa, "pin_llr_plain"), (wa, "llr_plain"),
+                 (wv, "hash_plain"), (wv, "tail_plain")]
     from qtpu_torch.pipeline import BobSession
     # The encoder's launches whose parts lie off 16-byte alignment (the
     # threads' body): none on the main path.
@@ -2169,8 +2522,16 @@ def main() -> int:
     def launch_spy(name, dev_, *args, real=enc._launch):
         off_parts[name] += any(p is not None and p % 16 for p in args[:3])
         return real(name, dev_, *args)
+    # The verify tail's launches by mode (the kernel's 17th argument).
+    tail_modes = collections.Counter()
+
+    def tail_spy(name, dev_, *args, real=wv._launch):
+        if name == "verify_tail":
+            tail_modes[("first", "retry", "retry_small")[args[16]]] += 1
+        return real(name, dev_, *args)
     with contextlib.ExitStack() as patches:
         patches.enter_context(mock.patch.object(enc, "_launch", launch_spy))
+        patches.enter_context(mock.patch.object(wv, "_launch", tail_spy))
         for owner, name in plain_fns:
             patches.enter_context(mock.patch.object(
                 owner, name, counted(name, getattr(owner, name))))
@@ -2207,6 +2568,17 @@ def main() -> int:
     assert off_parts["qc_encode"] == 0, off_parts
     say(f"session qc_encode: all {prod['qc_encode']} launches had 16-byte "
         f"aligned parts (the bulk body)")
+    # Each Bob decode ends in one tail launch: the first decode's a window,
+    # a retry mode's a retry round; Alice hashes once a window.
+    assert tail_modes["first"] >= len(mets) and sum(tail_modes.values()) \
+        == prod["verify_tail"], (tail_modes, prod, len(mets))
+    assert 0 < tail_modes["retry"] + tail_modes["retry_small"] \
+        <= made["_on_retry"], (tail_modes, made)
+    assert prod["verify_hash"] >= len(mets), prod
+    say(f"session verify: {prod['verify_hash']} hash and "
+        f"{prod['verify_tail']} tail launches over {len(mets)} windows "
+        f"(tail by mode {dict(tail_modes)}, {made['_on_retry']} retry "
+        f"rounds); no plain hash or tail")
     del alice, bob, a_src, b_src
 
     # 7. the min-sum session (flooding decoder) on this card, at 5c's
@@ -2393,6 +2765,9 @@ def main() -> int:
     # 19. the scaling curve, as a subprocess
     scaling_launches = scaling_phase(8, timeout=300)
 
+    # 5d, traced part (a profiler trace before phase 13's breaks its own)
+    verify_traced_phase(dev, cfg, probe, verified)
+
     def path_launches(kernel):
         return {f"launches_{name}": counts[kernel]
                 for name, counts in measured.items()}
@@ -2405,6 +2780,7 @@ def main() -> int:
         "mesh_stream_pa_session": mst_launches,
         **{f"bench_{k}": v for k, v in bench_launches.items()}, **measured}
     seed, offsets, chunk = draws["pa_seed"], draws["offsets"], draws["hash"]
+    vtail = verified["tail"]
     encoder, pins, llr8 = (assembled["qc_encode"], assembled["pin_llr"],
                            assembled["llr_8"])
     wk_paths = {name: window_kernel_launches(counts)
@@ -2525,7 +2901,36 @@ def main() -> int:
             round(assembled["pin_llr_off"].device_ms, 4),
         **{f"{f}_llr_8_rows": float(f"{getattr(llr8, f):.4g}")
            for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
-        "bound_by_llr_8_rows": llr8.bound_by}]}))
+        "bound_by_llr_8_rows": llr8.bound_by}, {
+        "name": "verify", "route": "cuda",
+        "source": "qtpu_torch/csrc/verify.cu",
+        "replaces": "qtpu/window_programs.py:364-387",
+        "replaces_also": ["qtpu/window_programs.py:473-481",
+                          "qtpu/window_programs.py:553-563",
+                          "qtpu/window_programs.py:598-618"],
+        "launches": prod["verify_hash"] + prod["verify_tail"],
+        "launches_by_entry": {k: prod[k] for k in wv.launches},
+        **{f"launches_{name}": n[2] for name, n in wk_paths.items()},
+        "launches_two_processes": two_window[2],
+        "launches_per_window": round(wk_per_window["verify_hash"]
+                                     + wk_per_window["verify_tail"], 3),
+        "max_abs_err": float(max(d.err for d in verified.values()
+                                 if isinstance(d, Draw))),
+        "ms": round(vtail.ms, 4), "device_ms": round(vtail.device_ms, 4),
+        "plain_ms": round(vtail.plain_ms, 2),
+        "bound_ms": round(vtail.bound_ms, 5), "bound_by": vtail.bound_by,
+        "library_ms": None,
+        "timed": "verify_tail: Bob's first decode at the rung a 3% prior "
+                 "selects, B = 128",
+        **{f"{f}_{k}": float(f"{getattr(verified[k], f):.4g}")
+           for k in ("hash", "tail_off", "tail_shard", "retry",
+                     "retry_small")
+           for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        **{f"bound_by_{k}": verified[k].bound_by
+           for k in ("hash", "retry", "retry_small")},
+        "library_ms_hash": round(verified["hash_chain"][1], 4),
+        "library_call_hash": "the float32 cuBLAS chain verify_hash "
+                             "replaces (hash_plain), device ms"}]}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,8 @@ with the reference's metric names and extra keys, plus ``extra["device"]``
 (the card's name and power limit from nvidia-smi, or "cpu"), and writes it
 to ``build/qtpu_torch/bench_last_run.json``.  The line before it,
 ``bench launches: {...}``, holds the launches of each BP kernel, each
-threefry entry point, the syndrome encoder and each pin/LLR entry point
-per measurement (the counts are set to 0 before each one).
+threefry entry point, the syndrome encoder, each pin/LLR and each verify
+entry point per measurement (the counts are set to 0 before each one).
 
 The judged value is ``measure_party("bob")``: Bob's side of the
 production session replayed alone against the recorded peer messages (a
@@ -661,13 +661,14 @@ def _sift_events_per_s(dev: torch.device) -> float:
 
 def run(dev: torch.device) -> tuple[dict, dict]:
     """Every measurement of the bench on ``dev``: (the result line, each
-    measurement's BP kernel, threefry, encoder and pin/LLR launches)."""
+    measurement's BP kernel, threefry, encoder, pin/LLR and verify
+    launches)."""
     from qtpu_torch import random as tf
-    from qtpu_torch import window_assembly
+    from qtpu_torch import window_assembly, window_verify
     from qtpu_torch.ldpc import cuda_bp, encode
     launches = {}
     counters = (cuda_bp.launches, tf.launches, encode.launches,
-                window_assembly.launches)
+                window_assembly.launches, window_verify.launches)
 
     def counted(name, fn):
         for counts in counters:

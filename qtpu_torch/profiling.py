@@ -10,9 +10,12 @@ Counterparts of ``benchmarks/profile_programs.py`` and
 ``programs`` times each window program of ``production_config()`` at the
 rung a 3% QBER prior selects (Alice's, Bob's, PA, pack, the retry of 8
 rows), and the pieces the reference decomposes: the session's decoder at
-the window's shape (``decode_only``), the verify hash (``verify_hash``)
-and the PA seed rows (``pa_seed_gen``).  Per entry, under the reference's
-key, the reference's number: ms a call over REPS back-to-back calls and
+the window's shape (``decode_only``), the verify hash (``verify_hash``:
+the kernel the programs launch, ``qtpu_torch.window_verify.hash``; and
+``verify_hash_cublas``: its plain version, the float32 cuBLAS matmul
+chain the programs ran before it) and the PA seed rows
+(``pa_seed_gen``).  Per entry, under the reference's key, the
+reference's number: ms a call over REPS back-to-back calls and
 one synchronize.  On the TPU that was device time; with eager ops on a
 card it is mostly the host's dispatch, so on a card each entry also gets
 ``device_ms`` (the summed kernel time a call in a torch.profiler trace of
@@ -71,7 +74,8 @@ from qtpu_torch.ldpc import cuda_bp
 __all__ = ["programs", "full_chain", "device_trace", "Timers", "main"]
 
 PROGRAMS = ("alice_program", "bob_program", "pa", "pack", "retry_small",
-            "decode_only", "verify_hash", "pa_seed_gen")
+            "decode_only", "verify_hash", "verify_hash_cublas",
+            "pa_seed_gen")
 QBER = 0.03
 TOP_KERNELS = 10
 
@@ -226,7 +230,8 @@ def programs(device=DEFAULT_DEVICE, reps: int = 20, cfg=None) -> dict:
     from qtpu_torch.ldpc.decode import channel_llr, make_batch_decoder
     from qtpu_torch.link import DirectLink
     from qtpu_torch.pipeline import AliceSession, BobSession, production_config
-    from qtpu_torch.window_programs import _check_exact_matmul, make_header
+    from qtpu_torch import window_verify
+    from qtpu_torch.window_programs import make_header
     from qtpu_torch.bench import SESSION_SEED, _host, _host_now
     dev = resolve_device(device)
     cfg = cfg or production_config()
@@ -270,17 +275,12 @@ def programs(device=DEFAULT_DEVICE, reps: int = 20, cfg=None) -> dict:
         rng.integers(0, 2, (B, step.code.n)).astype(np.uint8)).to(dev), QBER)
     syn_full = torch.from_numpy(rng.integers(
         0, 2, (B, step.code.m)).astype(np.uint8)).to(dev)
-    # The reference hashes each block against its own P + 63 seed bits;
-    # the port hashes a window against one (64, P) Toeplitz matrix (row j
-    # is t[j : j + P]) with a float32 matmul: the first row's seed here.
+    # The reference hashes a window's blocks against one window-level seed
+    # of P + Vh - 1 bits (row j of its Toeplitz matrix is t[j : j + P]), as
+    # the port does.
     t = torch.from_numpy(rng.integers(
-        0, 2, (B, P + cfg.verify_hash_bits - 1)).astype(np.uint8)).to(dev)[0]
+        0, 2, P + cfg.verify_hash_bits - 1).astype(np.uint8)).to(dev)
     x = torch.from_numpy(rng.integers(0, 2, (B, P)).astype(np.uint8)).to(dev)
-
-    def verify_hash():
-        _check_exact_matmul(x)
-        acc = x.to(torch.float32) @ t.unfold(0, P, 1).to(torch.float32).T
-        return (acc.to(torch.int32) & 1).to(torch.uint8)
 
     calls = {
         "alice_program": lambda: prog_a.alice(arena_a, header_a),
@@ -289,7 +289,8 @@ def programs(device=DEFAULT_DEVICE, reps: int = 20, cfg=None) -> dict:
         "pack": lambda: prog_a.pack(fk),
         "retry_small": lambda: prog_b.retry_small(*retry_args),
         "decode_only": lambda: dec(llr, syn_full),
-        "verify_hash": verify_hash,
+        "verify_hash": lambda: window_verify.hash(x, t),
+        "verify_hash_cublas": lambda: window_verify.hash_plain(x, t),
         "pa_seed_gen": lambda: tr.seed_rows_at(pakey, (), range(B),
                                                P + prog_a.l_max - 1, dev),
     }
@@ -501,10 +502,12 @@ def full_chain(device=DEFAULT_DEVICE, windows: int = 6, warmup: int = 6,
 
 
 def _window_kernel_launches() -> dict:
-    """The syndrome encoder's and the pin/LLR entry points' launches."""
-    from qtpu_torch import window_assembly
+    """The syndrome encoder's, the pin/LLR and the verify entry points'
+    launches."""
+    from qtpu_torch import window_assembly, window_verify
     from qtpu_torch.ldpc import encode
-    return {**encode.launches, **window_assembly.launches}
+    return {**encode.launches, **window_assembly.launches,
+            **window_verify.launches}
 
 
 def main(argv=None) -> int:

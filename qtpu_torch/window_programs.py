@@ -31,9 +31,11 @@ flooding min-sum) is its Hopper kernel for CUDA tensors and its plain
 PyTorch version for CPU tensors (``qtpu_torch.ldpc.cuda_bp``); so are the
 work the reference's XLA fuses around it: Alice's syndrome encoder, which
 reads the codeword's payload, shortening-fill and puncture-pad columns
-where they lie (``qtpu_torch.ldpc.encode``, ``csrc/qc_encode.cu``), and
+where they lie (``qtpu_torch.ldpc.encode``, ``csrc/qc_encode.cu``),
 Bob's pins, mismatch count and LLRs (``qtpu_torch.window_assembly``,
-``csrc/pin_llr.cu``).
+``csrc/pin_llr.cu``), and the verify hash with Bob's decode tail: the
+payload extract, the pin merge, ok, the error count and the retries'
+merges (``qtpu_torch.window_verify``, ``csrc/verify.cu``).
 
 With a mesh (``qtpu_torch.parallel.Mesh``), ``bob`` runs the single-device
 body once per local shard on that shard's rows and device (protocol
@@ -54,6 +56,7 @@ import torch
 
 from qtpu_torch import random as tr
 from qtpu_torch import window_assembly as wa
+from qtpu_torch import window_verify as wv
 from qtpu_torch.accounting import LEDGER_FIELDS
 from qtpu_torch.ldpc.codes import QCCode
 from qtpu_torch.pa import _toeplitz_hash
@@ -119,14 +122,6 @@ class WindowPrograms(NamedTuple):
     retry_bits: int  # retry disclosure bits per block
 
 
-def _check_exact_matmul(x: torch.Tensor) -> None:
-    # The verify hash is an exact GF(2) product through a float32 matmul:
-    # products are 0/1 and sums <= P <= 2^17 < 2^24, exact only without TF32.
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the verify hash needs full-float32 matmuls: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False")
-
-
 def make_window_programs(code: QCCode, pay_pos: np.ndarray,
                          punct_pos: np.ndarray, short_pos: np.ndarray,
                          max_iters: int, alg: str, verify_hash_bits: int,
@@ -171,12 +166,6 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
     def _t(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    # The payload columns' index, once per device a program runs on (each
-    # shard's).
-    devices = [device] + (mesh.devices if mesh is not None else [])
-    pay_index = {d: torch.as_tensor(pay_cols, dtype=torch.int64, device=d)
-                 for d in devices}
-
     def _frame(arena, header, b, row0, dev):
         """(b, P) payload slab on ``dev``: a copy of the stream at the
         cursor (the arena is updated in place by later pushes and
@@ -209,21 +198,6 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         made = iter(tr.draws(live, dev) if live else ())
         return [None if d is None else next(made) for d in table]
 
-    def _vmatrix(seed):
-        """(Vh, P) float32 Toeplitz verification matrix from the verify
-        seed: row j is t[j : j + P]."""
-        return seed[0].unfold(0, P, 1).to(torch.float32)
-
-    def _verify_hash(t_mat, x_bits):
-        """(b, P) x (P, Vh) -> (b, Vh) GF(2) Toeplitz hash."""
-        _check_exact_matmul(x_bits)
-        acc = x_bits.to(torch.float32) @ t_mat.T
-        return (acc.to(torch.int32) & 1).to(torch.uint8)
-
-    def _extract_payload(x_bits, dev):
-        b = x_bits.shape[0]
-        return x_bits.reshape(b, nb, z)[:, pay_index[dev], :].reshape(b, P)
-
     def _affine(header):
         return int(header[7]), int(header[8]), int(header[9])
 
@@ -238,7 +212,7 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         # The codeword's parts go to the encoder as they are: it reads each
         # base column from its part (no assembled codeword).
         syn = encode(payload, fill, punct)
-        hashes = _verify_hash(_vmatrix(vseed), payload)
+        hashes = wv.hash(payload, vseed[0])
         pos_s, pos_t = wa.disclosure_positions(_affine(header), boff_t, P,
                                                Sm, Kq)
         short_vals = payload[:, pos_s]                       # (B, Sm)
@@ -246,18 +220,14 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         return payload, syn, hashes, test_vals, short_vals
 
     def _decode_core(vseed, rx_orig, rx_pin, pinmask, llr, syndromes,
-                     exp_hashes, dev):
+                     exp_hashes, **merge):
         """Decode the assembled ``llr`` -> verify against the verify seed
-        ``vseed``.  stats: (b,3) [ok, iters, errs].  Shared by the first
-        decode and the retry re-decode."""
+        ``vseed`` and merge (``window_verify.tail``'s mode: ``mism`` for
+        the first decode, else a retry's).  Returns (hat, stats (B, 4))."""
         res = decoder(llr, syndromes.contiguous())
-        hat = torch.where(pinmask, rx_pin, _extract_payload(res.bits, dev))
-        hashes = _verify_hash(_vmatrix(vseed), hat)
-        ok = (hashes == exp_hashes).all(dim=1) & res.converged
-        errs = (hat ^ rx_orig).to(torch.int32).sum(dim=1, dtype=torch.int32)
-        stats = torch.stack([ok.to(torch.int32),
-                             res.iterations.to(torch.int32), errs], dim=1)
-        return hat, stats
+        return wv.tail(res.bits, rx_pin, pinmask, rx_orig, vseed[0],
+                       exp_hashes.contiguous(), res.converged,
+                       res.iterations, layout, **merge)
 
     def _bob_core(arena, header, test_alice, short_alice, syndromes,
                   exp_hashes, qmag, row0, dev):
@@ -276,8 +246,7 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
             rx_orig, short_alice, test_alice, boff_t, _affine(header),
             int(header[1]), int(header[6]), Sm, fill, qmag, layout)
         hat, stats = _decode_core(vseed, rx_orig, rx_pin, pinmask, llr,
-                                  syndromes, exp_hashes, dev)
-        stats = torch.cat([stats, mism[:, None]], dim=1)
+                                  syndromes, exp_hashes, mism=mism)
         return hat, rx_orig, rx_pin, pinmask, stats
 
     if mesh is None:
@@ -351,15 +320,9 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         fill, vseed = _draw(device, _shortfill(header, range(B)),
                             _verify_seed(header))
         llr = wa.llr(rx2, pin2, fill, qmag, layout)
-        hat2, st2 = _decode_core(vseed, rx_orig, rx2, pin2, llr, syndromes,
-                                 exp_hashes, device)
-        failed_b = failed_b[:, 0]
-        ok = stats[:, 0].to(torch.bool) | (failed_b & st2[:, 0].to(torch.bool))
-        hat_m = torch.where(failed_b[:, None], hat2, hat)
-        iters_m = torch.maximum(stats[:, 1], st2[:, 1])
-        errs_m = torch.where(failed_b, st2[:, 2], stats[:, 2])
-        stats_m = torch.stack([ok.to(torch.int32), iters_m, errs_m,
-                               stats[:, 3]], dim=1)
+        hat_m, stats_m = _decode_core(vseed, rx_orig, rx2, pin2, llr,
+                                      syndromes, exp_hashes, hat=hat,
+                                      stats=stats, failed=failed)
         return hat_m, rx2, pin2, stats_m
 
     def retry_small(arena, header, rx_orig, rx_pin, pinmask, hat, stats,
@@ -369,7 +332,8 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         ``rows_valid``; the reference's fixed R = 8 row batch and its drop-
         mode pad index are XLA shape artifacts) and merge them back."""
         pinmask = pinmask.to(torch.bool)
-        sel = _t(np.asarray(rows)[np.asarray(rows_valid).astype(bool)])
+        sel_rows = np.asarray(rows)[np.asarray(rows_valid).astype(bool)]
+        sel = _t(sel_rows)
         pos = _t(positions)
         bits = torch.as_tensor(bits, device=device)
         rx2_rows = rx_pin[sel]
@@ -379,21 +343,13 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         fill, vseed = _draw(device, _shortfill(header, sel),
                             _verify_seed(header))
         llr = wa.llr(rx2_rows, pin2_rows, fill, qmag, layout)
-        hat_r, st_r = _decode_core(vseed, rx_orig[sel], rx2_rows, pin2_rows,
-                                   llr, syndromes[sel], exp_hashes[sel],
-                                   device)
-        hat_m = hat.clone()
-        hat_m[sel] = hat_r
+        hat_m, stats_m = _decode_core(vseed, rx_orig, rx2_rows, pin2_rows,
+                                      llr, syndromes[sel], exp_hashes,
+                                      hat=hat, stats=stats, rows=sel_rows)
         rx_pin_m = rx_pin.clone()
         rx_pin_m[sel] = rx2_rows
         pin_m = pinmask.clone()
         pin_m[sel] = pin2_rows
-        st_rows = stats[sel]
-        st_new = torch.stack([st_r[:, 0],
-                              torch.maximum(st_rows[:, 1], st_r[:, 1]),
-                              st_r[:, 2], st_rows[:, 3]], dim=1)
-        stats_m = stats.clone()
-        stats_m[sel] = st_new
         return hat_m, rx_pin_m, pin_m, stats_m
 
     def pa_program(payload, pakey_data):

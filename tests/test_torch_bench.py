@@ -260,7 +260,8 @@ def test_cli_bench_cpu_prints_one_reference_line(monkeypatch, capsys,
     assert launches == {"decode": {"bp_layered": 0, "bp_flooding": 0,
                                    "threefry_draws": 0,
                                    "threefry_hash": 0, "qc_encode": 0,
-                                   "pin_llr": 0, "llr": 0}}
+                                   "pin_llr": 0, "llr": 0,
+                                   "verify_hash": 0, "verify_tail": 0}}
 
 
 def test_bench_needs_cuda_unless_told_cpu(monkeypatch):

@@ -1,5 +1,6 @@
 """qtpu_torch on the card: both BP kernels, the threefry kernel, the
-syndrome encoder and pin/LLR kernels, sessions and sifting on CUDA.
+syndrome encoder, pin/LLR and verify kernels, sessions and sifting on
+CUDA.
 
 Marked ``cuda``; every test skips without a CUDA device.  On a machine with
 a card (which has no JAX, so the JAX import of tests/conftest.py must be
@@ -20,7 +21,10 @@ unaligned parts; each body of the encoder with the launch it makes:
 production rungs at 32, 128 and 300 blocks, a part or every part off
 alignment, 5,000 n = 4096 blocks, z = 8,192 in column groups;
 pin_llr and llr at z = 2,048, 64 and 16, B = 1 to 128, every input
-aligned or off alignment; LLRs by their float32 bit patterns), a session on the card against the
+aligned or off alignment; LLRs by their float32 bit patterns), the
+verify kernel's hash and its tail in each mode against their plain
+versions (production rungs, z = 16, 24, 10 and 64, Vh 1 to 64, 1 to 128
+rows, every input aligned or one byte off), a session on the card against the
 same session on
 the CPU (final keys, ledgers, per-window metrics), the bench's BSC stream
 on the card against the CPU and its per-chip replay on the card, and the
@@ -813,6 +817,149 @@ def test_window_kernels_reject_bad_inputs_on_card(dev):
     with pytest.raises(ValueError, match="pin must be"):
         wa.llr(args["rx"], args["rx"], args["fill"], 1.0, layout)
     assert (enc.launches, wa.launches) == before
+
+
+def _verify_layouts():
+    """(name, ColumnLayout) the verify kernel is held at: production rungs
+    0, 4 and 9 (z = 2,048), the mixed n = 4096 ladder's rung 1 (z = 16: a
+    word spans two columns), the z = 24 and 10 codes (P not a multiple of
+    32) and a regular n = 1024 code (z = 64)."""
+    from qtpu_torch.ldpc.encode import ColumnLayout
+    out = [(f"r{r}", _production_layout(r)[1]) for r in (0, 4, 9)]
+    for name, code, layout in _window_layouts():
+        if name in ("n4096 r1", "z=24", "z=10", "regular short+punct"):
+            out.append((name, layout))
+    assert len(out) == 7 and all(isinstance(lay, ColumnLayout)
+                                 for _, lay in out)
+    return out
+
+
+def _tail_inputs(layout, b, B, g, vh=64):
+    """One decode's tail arguments: b decoded rows (random bits, 5% pins,
+    converged mostly) of a window of B rows whose expected hashes are the
+    first decode's own on every other row and one bit off elsewhere."""
+    from qtpu_torch import window_verify as wv
+    dev = g.device
+    P = layout.widths[0] * layout.z
+    bits = (lambda *shape: torch.randint(0, 2, shape, generator=g,
+                                         device=dev, dtype=torch.uint8))
+    args = dict(bits=bits(b, layout.nb * layout.z), rx_pin=bits(b, P),
+                pin=torch.rand((b, P), generator=g, device=dev) < 0.05,
+                rx_orig=bits(B, P), seed=bits(P + vh - 1),
+                converged=torch.rand(b, generator=g, device=dev) < 0.9,
+                iterations=torch.randint(1, 60, (b,), generator=g,
+                                         device=dev, dtype=torch.int32),
+                layout=layout)
+    hat, _ = wv.tail_plain(**dict(args, rx_orig=args["rx_orig"][:b]),
+                           exp_hashes=bits(b, vh),
+                           mism=torch.zeros(b, dtype=torch.int32,
+                                            device=dev))
+    exp = bits(B, vh)
+    exp[:b] = wv.hash_plain(hat, args["seed"])
+    exp[1:b:2, 0] ^= 1
+    args["exp_hashes"] = exp
+    return args
+
+
+def _same_out(got, want, what):
+    for x, y in zip(got, want, strict=True):
+        assert x.is_cuda and x.dtype == y.dtype and torch.equal(x, y), what
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("vh", [1, 31, 33, 64])
+def test_verify_hash_on_card_matches_plain(dev, vh, off):
+    """Every layout's P (and 32 to 128 rows), every input aligned or one
+    byte off alignment; one launch a call."""
+    from qtpu_torch import window_verify as wv
+    g = torch.Generator(device=dev).manual_seed(300 + vh + off)
+    for name, layout in _verify_layouts():
+        P = layout.widths[0] * layout.z
+        for b in (1, 32, 128):
+            x = torch.randint(0, 2, (b, P), generator=g, device=dev,
+                              dtype=torch.uint8)
+            seed = torch.randint(0, 2, (P + vh - 1,), generator=g,
+                                 device=dev, dtype=torch.uint8)
+            if off:
+                x, seed = _off_alignment(x, off), _off_alignment(seed, off)
+            before = wv.launches["verify_hash"]
+            got = wv.hash(x, seed)
+            torch.cuda.synchronize()
+            assert wv.launches["verify_hash"] == before + 1
+            _same_out((got,), (wv.hash_plain(x, seed),), (name, b))
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("mode", ["first", "retry", "retry_small"])
+def test_verify_tail_on_card_matches_plain(dev, mode, off):
+    """Each mode at every layout, B = 128 (and a shard's 32 rows for the
+    first decode): retry_program with 11 rows failed and the unfailed
+    rows' old iterations both below and above the new; retry_small at 1
+    and 8 rows; every input aligned or one byte off alignment."""
+    from qtpu_torch import window_verify as wv
+    g = torch.Generator(device=dev).manual_seed(400 + off)
+    B = 128
+    for name, layout in _verify_layouts():
+        P = layout.widths[0] * layout.z
+        for b in ((B, 32) if mode == "first" else
+                  (B,) if mode == "retry" else (1, 8)):
+            args = _tail_inputs(layout, b, B if mode != "first" else b, g)
+            if mode == "first":
+                merge = dict(mism=torch.randint(0, 9, (b,), generator=g,
+                                                device=dev,
+                                                dtype=torch.int32))
+            else:
+                old = torch.randint(0, 60, (B, 4), generator=g, device=dev,
+                                    dtype=torch.int32)
+                old[:, 0] = torch.randint(0, 3, (B,), generator=g,
+                                          device=dev)
+                merge = dict(hat=torch.randint(0, 2, (B, P), generator=g,
+                                               device=dev,
+                                               dtype=torch.uint8),
+                             stats=old)
+                pick = torch.randperm(B, generator=g, device=dev).cpu()
+                if mode == "retry":
+                    failed = np.zeros(B, bool)
+                    failed[pick[:11].numpy()] = True
+                    merge["failed"] = failed
+                else:
+                    merge["rows"] = pick[:b].numpy()
+            if off:
+                args = {k: (_off_alignment(v, off)
+                            if isinstance(v, torch.Tensor) else v)
+                        for k, v in args.items()}
+                merge = {k: (_off_alignment(v, off)
+                             if isinstance(v, torch.Tensor) else v)
+                         for k, v in merge.items()}
+            before = wv.launches["verify_tail"]
+            got = wv.tail(**args, **merge)
+            torch.cuda.synchronize()
+            assert wv.launches["verify_tail"] == before + 1
+            want = wv.tail_plain(**args, **merge)
+            _same_out(got, want, (name, b))
+            if mode == "first":
+                ok = want[1][:, 0].bool().cpu()
+                assert ok.any() and not ok.all(), (name, b)
+
+
+def test_verify_kernel_rejects_bad_inputs_on_card(dev):
+    from qtpu_torch import window_verify as wv
+    name, layout = _verify_layouts()[1]
+    g = torch.Generator(device=dev).manual_seed(9)
+    args = _tail_inputs(layout, 4, 4, g)
+    before = dict(wv.launches)
+    with pytest.raises(ValueError, match="Vh = 65"):
+        wv.hash(args["rx_pin"], torch.zeros(layout.widths[0] * layout.z
+                                            + 64, dtype=torch.uint8,
+                                            device=dev))
+    with pytest.raises(ValueError, match="is on cpu"):
+        wv.tail(**dict(args, rx_orig=args["rx_orig"].cpu()),
+                mism=torch.zeros(4, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="repeats a row"):
+        wv.tail(**args, hat=args["rx_orig"],
+                stats=torch.zeros((4, 4), dtype=torch.int32, device=dev),
+                rows=np.array([1, 1, 2, 3]))
+    assert wv.launches == before
 
 
 def test_bench_replay_on_card(dev):

@@ -46,6 +46,7 @@ from qtpu.window_programs import make_window_programs as j_make_programs
 from qtpu_torch import _build
 from qtpu_torch import random as tr
 from qtpu_torch import window_assembly as wa
+from qtpu_torch import window_verify as wv
 from qtpu_torch.ldpc import encode as enc
 from qtpu_torch.ldpc.codes import QCCode, _group_edges, code_from_reference
 from qtpu_torch.window_programs import TAG_SHORTFILL, TAG_TOFF
@@ -540,7 +541,8 @@ def test_other_devices_raise():
                d["layout"])
 
 
-@pytest.mark.parametrize("module", [enc, wa], ids=["qc_encode", "pin_llr"])
+@pytest.mark.parametrize("module", [enc, wa, wv],
+                         ids=["qc_encode", "pin_llr", "verify"])
 def test_bindings_match_the_kernel_source(module):
     """Every C entry point of the kernel's source is bound, with as many
     argument types as it has parameters, and each that launches (all but
