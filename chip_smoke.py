@@ -81,14 +81,17 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    128), timed at the first, the 3%-prior and the last rung; a shard's
    32 rows (== the unsharded call's rows, timed); retry_small's 1 and 8
    rows (timed) and retry_program's merge at B = 128 with 11 failed rows
+   (timed); the hash and the first decode's tail at 1 and 8 rows
    (timed); every input one byte off alignment (hash, tail at B = 128
    and at 8 rows); z = 24 and 10 in each mode, aligned and one byte off;
    every rung of the n = 4096 mixed ladder at B = 1024 (z = 16); Vh = 1,
-   31 and 33; each timed shape's call time, device time (a CUDA-graph
-   replay; a profiler trace for the retries, whose row map is uploaded a
-   call), plain time and bound (bytes at 3.35 TB/s, or a funnel shift
-   and a three-input AND-XOR a row word and hash bit on the INT32 pipe);
-   the hash's library call is the float32 cuBLAS chain it replaces,
+   31 and 33; each timed shape's launch plan (``window_verify.plan``:
+   cluster size, CTAs a row, a CTA's groups of 16 words, threads, shared
+   memory, the kept rows' CTAs), call time, device time (a CUDA-graph
+   replay; a profiler trace for the retries, whose row order is uploaded
+   a call), plain time and bound (bytes at 3.35 TB/s, or half a funnel
+   shift and a three-input AND-XOR a row word and hash bit on the INT32
+   pipe); the hash's library call is the float32 cuBLAS chain it replaces,
    timed on the same inputs.  A profiler trace of alice, bob,
    retry_program and retry_small at the 3%-prior rung shows each
    launching the verify kernel and no GEMM.  The traces run after phase
@@ -162,7 +165,8 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     4 shards of Bob's program at phase 3's rung (B = 128): both psum'd
     ledgers equal each other and the one-process 4-shard program's on the
     same window, and each rank launched pin_llr and the verify tail once
-   a shard;
+    a shard; in the one-process window each of the 4 shards' tails, on 4
+    streams, == the plain tail on its inputs;
 17. the bench: ``python -m qtpu_torch.cli bench`` as a subprocess on this
     card (the decoder alone, the copy bandwidth, both parties on the card,
     Bob's replayed session three times each, the events -> key chain, the
@@ -209,6 +213,14 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
+
+    python3 chip_smoke.py --verify-against DIR
+
+runs phase 5d alone (the verify library's build, then both parts) on the
+tree at DIR (a ``git archive`` of another commit, its own build) and on this
+one, in turns (DIR, this, this, DIR), each in a process of its own on one
+card; it prints each timed shape's device time and share of bound, and
+writes the runs' whole output to ``build/chip_smoke/verify_against.log``.
 """
 
 from __future__ import annotations
@@ -1031,11 +1043,12 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
 
 def verify_bound(nbytes, hashed):
     """The least time the card could take for ``nbytes`` of traffic and,
-    for each of ``hashed`` (row word, hash bit) pairs, one funnel shift
-    and one three-input AND-XOR (LOP3) on the INT32 pipe: (ms, "bytes" or
-    "operations")."""
+    for each of ``hashed`` (row word, hash bit) pairs, half a funnel shift
+    and one three-input AND-XOR (LOP3) on the INT32 pipe (a word's shift
+    for bit j is reused for bit j + 32 of the word before): (ms, "bytes"
+    or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * hashed / ALU_OPS_PER_S
+    t_ops = 1.5 * hashed / ALU_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1061,6 +1074,63 @@ def tail_bound(layout, b, B, vh, mode, merged=None):
     nbytes = (merged * row + kept + (P + vh - 1) + 8 * layout.nb
               + (0 if mode == "first" else 4 * B))
     return verify_bound(nbytes, merged * -(-P // 32) * vh)
+
+
+def verify_plan_text(dev, rows, merged, P, vh, layout=None) -> str:
+    """The launch ``window_verify.launch_plan`` makes for a hash (no
+    ``layout``) or a tail of ``merged`` of ``rows`` rows."""
+    from qtpu_torch import window_verify as wv
+    p = wv.launch_plan(dev.index, rows, merged, P, vh,
+                       *((layout.nb, layout.z) if layout else ()))
+    how = "a CTA a row" if p.cluster == 1 else f"a row over {p.cluster} CTAs"
+    return (f"plan C={p.cluster} ({how}; {p.groups} groups of 16 words a "
+            f"CTA, {p.threads} threads, {p.smem} B shared; "
+            f"{p.decoded_ctas} + {p.kept_ctas} kept CTAs; {p.resident} "
+            f"clusters resident)")
+
+
+def verify_sweep(label, dev, want, P, vh, rows, merged, run, layout=None,
+                 reps=20) -> dict:
+    """Every launch ``window_verify.plan`` can make with all its clusters
+    resident for a call of ``merged`` of ``rows`` rows (a tail where
+    ``layout`` is given, else a hash): ``run(plan)``'s outputs == ``want``
+    (the plain version's) at each, and its device time (a CUDA-graph
+    replay): {plan text: ms}, printed with the plan the call takes
+    marked."""
+    import torch
+    from qtpu_torch import window_verify as wv
+    idx = dev.index
+    tail = layout is not None
+    shape = (layout.nb, layout.z) if tail else ()
+    chosen = wv.launch_plan(idx, rows, merged, P, vh, *shape)
+    vec = P % 16 == 0 and (not tail or layout.z % 16 == 0)
+    occupancy = (lambda C, t, m: wv._max_clusters(idx, tail, vec, C, t, m))
+    G = wv._groups(P)
+    out, seen = {}, set()
+    for C in wv.CLUSTER_SIZES:
+        q = -(-G // C)
+        for w in wv.WARP_CAPS:
+            try:
+                p = wv.plan(rows, merged, P, vh, shape[0] if tail else 0,
+                            tail, wv._sms(idx), occupancy, cluster=C,
+                            threads=32 * min(w, q))
+            except (ValueError, RuntimeError):
+                continue
+            if p in seen or (p.grid // C > p.resident and p != chosen):
+                continue
+            seen.add(p)
+            got = run(p)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, want,
+                                                         strict=True)), \
+                f"verify {label}: {p} != plain"
+            text = f"C={C} {p.threads}t {p.grid} CTAs"
+            out[text] = graph_ms(lambda: run(p), reps)
+            if p == chosen:
+                out[text + " <- chosen"] = out.pop(text)
+    say(f"verify plans {label} (device ms, each == plain): " + ", ".join(
+        f"{k} {v * 1e3:.2f} us" for k, v in out.items()))
+    return out
 
 
 def trace_ms(fn, reps, kernel="verify_kernel"):
@@ -1196,6 +1266,9 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
         if moved:
             args, m = off(args), off(m)
         merged = 11 if mode == "retry" else None
+        if reps:
+            label += " | " + verify_plan_text(dev, B, merged or b, P, vh,
+                                              layout)
         d = hold_kernel("verify_tail", f"{mode} {label}",
                         lambda: wv.tail(**args, **m),
                         lambda: wv.tail_plain(**args, **m),
@@ -1218,6 +1291,9 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
 
     def hold_hash(label, x, seed, reps=0):
         b, P = x.shape
+        if reps:
+            label += " | " + verify_plan_text(dev, b, b, P,
+                                              seed.numel() - P + 1)
         return hold_kernel("verify_hash", label, lambda: wv.hash(x, seed),
                            lambda: wv.hash_plain(x, seed),
                            hash_bound(b, P, seed.numel() - P + 1), reps)
@@ -1254,8 +1330,10 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
                     and v.dim() and k != "seed" else v)
                 for k, v in r_args.items()}
         m = dict(mism=first["mism"][rows].contiguous())
+        plan = (" | " + verify_plan_text(dev, bl, bl, part["rx_pin"].shape[1],
+                                         vh, r_layout) if sh == 0 else "")
         d = hold_kernel("verify_tail", f"first shard {sh} rows {sh * bl}.. "
-                        f"B={bl}", lambda: wv.tail(**part, **m),
+                        f"B={bl}{plan}", lambda: wv.tail(**part, **m),
                         lambda: wv.tail_plain(**part, **m),
                         tail_bound(r_layout, bl, bl, vh, "first"),
                         20 if sh == 0 else 0)
@@ -1265,12 +1343,70 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
             assert torch.equal(x, y[rows]), f"shard {sh}: != unsharded rows"
     say(f"verify: {MESH_SHARDS} shards' rows (b = {bl}) == plain and == "
         f"the unsharded call's rows")
+    # Every resident plan at the timed shapes of the 3%-prior rung.
+    P = r_layout.widths[0] * r_layout.z
+    sweeps = out["sweeps"] = {}
+
+    def sweep_tail(label, mode, b, B, m):
+        args = inputs(r_layout, b, B)
+        hat_o = torch.empty((B, P), dtype=torch.uint8, device=dev)
+        st_o = torch.empty((B, 4), dtype=torch.int32, device=dev)
+        order, merged = None, B
+        if mode != "first":
+            code = wv.RETRY if mode == "retry" else wv.RETRY_SMALL
+            order, merged = wv._row_order(wv._source_rows(
+                code, m.get("failed"), m.get("rows"), b, B))
+            order = torch.from_numpy(order).to(dev)
+        code = {"first": wv.FIRST, "retry": wv.RETRY,
+                "retry_small": wv.RETRY_SMALL}[mode]
+
+        def run(p):
+            wv._launch_tail(args["bits"], args["rx_pin"], args["pin"],
+                            args["rx_orig"], args["seed"],
+                            args["exp_hashes"], args["converged"],
+                            args["iterations"], r_layout, m.get("mism"),
+                            m.get("hat"), m.get("stats"), code, order,
+                            merged, hat_o, st_o, p)
+            return hat_o, st_o
+        sweeps[label] = verify_sweep(label, dev,
+                                     wv.tail_plain(**args, **m), P, vh, B,
+                                     merged, run, r_layout)
+
+    def sweep_hash(label, x, seed):
+        o = torch.empty((x.shape[0], vh), dtype=torch.uint8, device=dev)
+
+        def run(p):
+            wv._launch_hash(x, seed, o, p)
+            return (o,)
+        sweeps[label] = verify_sweep(label, dev, (wv.hash_plain(x, seed),),
+                                     P, vh, x.shape[0], x.shape[0], run)
+    sweep_hash(f"hash B={B}", r_args["rx_orig"], r_args["seed"])
+    for bb in (1, 8):
+        sweep_hash(f"hash b={bb}", r_args["rx_orig"][:bb].contiguous(),
+                   r_args["seed"])
+    for label, mode, b in ((f"first B={B}", "first", B),
+                           (f"first shard b={bl}", "first", bl),
+                           ("first b=1", "first", 1),
+                           ("first b=8", "first", 8),
+                           (f"retry B={B}, 11 failed", "retry", B),
+                           (f"retry_small 8 rows of B={B}", "retry_small",
+                            8)):
+        Bw = b if mode != "retry_small" else B
+        sweep_tail(label, mode, b, Bw, merge(mode, b, Bw, P))
     # The retries' merges, timed; retry_small at 1 row too.
     hold_tail(f"rung {rung} B={B}, 11 failed", r_layout, "retry", B, B,
               reps=20)
     hold_tail(f"rung {rung} 8 rows of B={B}", r_layout, "retry_small", 8, B,
               reps=20)
     hold_tail(f"rung {rung} 1 row of B={B}", r_layout, "retry_small", 1, B)
+    # A decode (and a hash) of 1 and of 8 rows: too few rows to fill the
+    # card a row a CTA.
+    for bb in (1, 8):
+        out[f"tail_b{bb}"] = hold_tail(f"rung {rung} b={bb}", r_layout,
+                                       "first", bb, bb, reps=20)[0]
+        out[f"hash_b{bb}"] = hold_hash(
+            f"rung {rung} b={bb}", r_args["rx_orig"][:bb].contiguous(),
+            r_args["seed"], 20)
     # Every input one byte off alignment.
     out["tail_off"] = hold_tail(f"rung {rung} B={B}, every input one byte "
                                 f"off alignment", r_layout, "first", B, B,
@@ -1966,8 +2102,27 @@ def two_process_phase(dev, timeout):
                 proc.kill()
                 proc.wait()
     wall = time.perf_counter() - t
-    gled, stats = mesh_program_window(dev,
-                                      make_mesh(devices=[dev] * MESH_SHARDS))
+    # The one-process window: each shard's tail (on its own stream) held
+    # to the plain tail on its inputs.
+    import torch
+    from qtpu_torch import window_verify as wv
+    tails = []
+
+    def tail_spy(*args, real=wv.tail, **kwargs):
+        out = real(*args, **kwargs)
+        tails.append((args, kwargs, out,
+                      torch.cuda.current_stream(dev).cuda_stream))
+        return out
+    with mock.patch.object(wv, "tail", tail_spy):
+        gled, stats = mesh_program_window(
+            dev, make_mesh(devices=[dev] * MESH_SHARDS))
+    torch.cuda.synchronize()
+    assert len(tails) == MESH_SHARDS and len({s for *_, s in tails}) \
+        == MESH_SHARDS, [s for *_, s in tails]
+    for args, kwargs, out, _ in tails:
+        assert all(torch.equal(x, y) for x, y in zip(
+            out, wv.tail_plain(*args, **kwargs), strict=True)), \
+            "a shard's tail != plain"
     bl = len(stats) // MESH_SHARDS
     for o in outs:
         assert (o["backend"], o["size"]) == ("gloo", MESH_SHARDS), o
@@ -1989,7 +2144,8 @@ def two_process_phase(dev, timeout):
         f"ledger {gled} on both == the one-process program's; stats rows "
         f"equal; {launches} bp_layered, {threefry} threefry, {window[0]} "
         f"qc_encode, {window[1]} pin_llr and {window[2]} verify launches; "
-        f"{wall:.1f} s for both")
+        f"{wall:.1f} s for both; the one-process window's {MESH_SHARDS} "
+        f"tails, on {MESH_SHARDS} streams, == plain")
     return launches, threefry, window
 
 
@@ -2924,11 +3080,14 @@ def main() -> int:
                  "selects, B = 128",
         **{f"{f}_{k}": float(f"{getattr(verified[k], f):.4g}")
            for k in ("hash", "tail_off", "tail_shard", "retry",
-                     "retry_small")
+                     "retry_small", "tail_b1", "tail_b8", "hash_b1",
+                     "hash_b8")
            for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
         **{f"bound_by_{k}": verified[k].bound_by
-           for k in ("hash", "retry", "retry_small")},
+           for k in ("hash", "retry", "retry_small", "tail_b1", "hash_b1")},
         "library_ms_hash": round(verified["hash_chain"][1], 4),
+        "plan_sweeps_device_ms": {k: {p: round(ms, 5) for p, ms in v.items()}
+                                  for k, v in verified["sweeps"].items()},
         "library_call_hash": "the float32 cuBLAS chain verify_hash "
                              "replaces (hash_plain), device ms"}]}))
     say(nvidia_smi())
@@ -2938,7 +3097,75 @@ def main() -> int:
     return 0
 
 
+# Phase 5d alone in a process, for a tree given as its argument: only
+# functions both this tree's chip_smoke.py and its parent's have.
+VERIFY_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from qtpu_torch import _build
+from qtpu_torch import window_verify as wv
+from qtpu_torch.link import make_direct_pair
+from qtpu_torch.pipeline import BobSession, PipelineConfig, production_config
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+_build.build(wv.LIBRARY)
+_build.load(wv.LIBRARY)
+cs.say("build: " + " | ".join(cs.ptxas_summary(_build.build_log(wv.LIBRARY))))
+cfg = production_config()
+probe = BobSession(cfg, 0x5E55, make_direct_pair()[1], device=dev)
+ms_probe = BobSession(PipelineConfig(
+    n=4096, family="mixed", alg="minsum", blocks_per_window=1024,
+    qber_test_bits=8192, stream_capacity_bits=1 << 25), 0x5E55,
+    make_direct_pair()[1], device=dev)
+verified = cs.verify_phase(dev, cfg, probe, ms_probe)
+cs.verify_traced_phase(dev, cfg, probe, verified)
+"""
+
+TIMED_LINE = re.compile(r"^(verify_\w+) (.*?)(?: \| plan (.*?))?: .*"
+                        r"device_ms=([\d.]+).*share_of_bound ([\d.]+)")
+
+
+def verify_against(other: str) -> int:
+    """``--verify-against DIR``: phase 5d of the tree at DIR and of this
+    one in turns, each in its own process (see the module docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    say(nvidia_smi())
+    log_dir = ROOT / "build" / "chip_smoke"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    trees = [("parent", Path(other).resolve()), ("change", ROOT)]
+    with open(log_dir / "verify_against.log", "w") as log:
+        for run, (tag, root) in enumerate(trees + trees[::-1]):
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", VERIFY_CHILD, str(root)], cwd=root,
+                env=dict(__import__("os").environ, PYTHONPATH=str(root)),
+                capture_output=True, text=True, timeout=900)
+            log.write(f"### {tag} run {run + 1} rc={proc.returncode}\n"
+                      f"{proc.stdout}{proc.stderr}\n")
+            if proc.returncode != 0:
+                say(f"{tag} run {run + 1} failed: {proc.stderr[-3000:]}")
+                return 1
+            for ln in proc.stdout.splitlines():
+                m = TIMED_LINE.match(ln)
+                if ln.startswith("build:"):
+                    say(f"{tag} run {run + 1} {ln[:600]}")
+                elif m:
+                    say(f"{tag} run {run + 1} {m[1]} {m[2]}: device_ms "
+                        f"{m[4]} share {m[5]}" + (f" [{m[3]}]" if m[3]
+                                                  else ""))
+            say(f"{tag} run {run + 1}: {time.perf_counter() - t:.1f} s")
+    say(nvidia_smi())
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3])))
+    if sys.argv[1:2] == ["--verify-against"]:
+        sys.exit(verify_against(sys.argv[2]))
     sys.exit(main())

@@ -23,8 +23,10 @@ alignment, 5,000 n = 4096 blocks, z = 8,192 in column groups;
 pin_llr and llr at z = 2,048, 64 and 16, B = 1 to 128, every input
 aligned or off alignment; LLRs by their float32 bit patterns), the
 verify kernel's hash and its tail in each mode against their plain
-versions (production rungs, z = 16, 24, 10 and 64, Vh 1 to 64, 1 to 128
-rows, every input aligned or one byte off), a session on the card against the
+versions (production rungs, z = 16, 24, 10 and 64, Vh 1 to 64, 1 to 300
+rows, every input aligned or one byte off; retries that keep no row, all
+rows but one, and retry_small on rows that are not contiguous; the kernel
+refuses a plan that is not the host's), a session on the card against the
 same session on
 the CPU (final keys, ledgers, per-window metrics), the bench's BSC stream
 on the card against the CPU and its per-chip replay on the card, and the
@@ -866,64 +868,80 @@ def _same_out(got, want, what):
         assert x.is_cuda and x.dtype == y.dtype and torch.equal(x, y), what
 
 
+VERIFY_ROWS = [1, 8, 32, 128, 300]
+
+
 @pytest.mark.parametrize("off", [0, 1])
 @pytest.mark.parametrize("vh", [1, 31, 33, 64])
-def test_verify_hash_on_card_matches_plain(dev, vh, off):
-    """Every layout's P (and 32 to 128 rows), every input aligned or one
-    byte off alignment; one launch a call."""
+@pytest.mark.parametrize("b", VERIFY_ROWS)
+def test_verify_hash_on_card_matches_plain(dev, b, vh, off):
+    """Every layout's P at b rows (each row count a plan of its own: a row
+    split over a cluster at 1-32 rows, a row a CTA at 128 and 300), every
+    input aligned or one byte off alignment; one launch a call, bit for
+    bit."""
     from qtpu_torch import window_verify as wv
-    g = torch.Generator(device=dev).manual_seed(300 + vh + off)
+    g = torch.Generator(device=dev).manual_seed(300 + vh + off + b)
     for name, layout in _verify_layouts():
         P = layout.widths[0] * layout.z
-        for b in (1, 32, 128):
-            x = torch.randint(0, 2, (b, P), generator=g, device=dev,
-                              dtype=torch.uint8)
-            seed = torch.randint(0, 2, (P + vh - 1,), generator=g,
-                                 device=dev, dtype=torch.uint8)
-            if off:
-                x, seed = _off_alignment(x, off), _off_alignment(seed, off)
-            before = wv.launches["verify_hash"]
-            got = wv.hash(x, seed)
-            torch.cuda.synchronize()
-            assert wv.launches["verify_hash"] == before + 1
-            _same_out((got,), (wv.hash_plain(x, seed),), (name, b))
+        x = torch.randint(0, 2, (b, P), generator=g, device=dev,
+                          dtype=torch.uint8)
+        seed = torch.randint(0, 2, (P + vh - 1,), generator=g,
+                             device=dev, dtype=torch.uint8)
+        if off:
+            x, seed = _off_alignment(x, off), _off_alignment(seed, off)
+        before = wv.launches["verify_hash"]
+        got = wv.hash(x, seed)
+        torch.cuda.synchronize()
+        assert wv.launches["verify_hash"] == before + 1
+        _same_out((got,), (wv.hash_plain(x, seed),), (name, b))
+
+
+def _tail_merges(mode, b, B, P, g):
+    """(label, merge kwargs) of ``mode`` for b decoded rows of a window of
+    B: the first decode; retry_program with min(11, B) rows failed, with
+    every row failed (it keeps no row) and with one (it keeps all but
+    one), old iterations below and above the new; retry_small's rows on
+    window rows that are not contiguous (a random permutation's first
+    b)."""
+    dev = g.device
+    if mode == "first":
+        return [("first", dict(mism=torch.randint(
+            0, 9, (b,), generator=g, device=dev, dtype=torch.int32)))]
+
+    def old():
+        st = torch.randint(0, 60, (B, 4), generator=g, device=dev,
+                           dtype=torch.int32)
+        st[:, 0] = torch.randint(0, 3, (B,), generator=g, device=dev)
+        return dict(hat=torch.randint(0, 2, (B, P), generator=g, device=dev,
+                                      dtype=torch.uint8), stats=st)
+    pick = torch.randperm(B, generator=g, device=dev).cpu().numpy()
+    if mode == "retry_small":
+        rows = pick[:b]
+        assert b < 2 or b == B or np.ptp(rows) >= b, rows
+        return [(f"rows {rows[:4].tolist()}..", dict(old(), rows=rows))]
+    out = []
+    for failed_rows in (min(11, B), B, 1):
+        failed = np.zeros(B, bool)
+        failed[pick[:failed_rows]] = True
+        out.append((f"{failed_rows} failed", dict(old(), failed=failed)))
+    return out
 
 
 @pytest.mark.parametrize("off", [0, 1])
 @pytest.mark.parametrize("mode", ["first", "retry", "retry_small"])
-def test_verify_tail_on_card_matches_plain(dev, mode, off):
-    """Each mode at every layout, B = 128 (and a shard's 32 rows for the
-    first decode): retry_program with 11 rows failed and the unfailed
-    rows' old iterations both below and above the new; retry_small at 1
-    and 8 rows; every input aligned or one byte off alignment."""
+@pytest.mark.parametrize("b", VERIFY_ROWS)
+def test_verify_tail_on_card_matches_plain(dev, b, mode, off):
+    """Each mode at every layout and b decoded rows: the first decode (B =
+    b), retry_program (B = b; 11 failed, all failed, one failed),
+    retry_small (b of B = max(128, b) window rows); every input aligned or
+    one byte off alignment; one launch a call, bit for bit."""
     from qtpu_torch import window_verify as wv
-    g = torch.Generator(device=dev).manual_seed(400 + off)
-    B = 128
+    g = torch.Generator(device=dev).manual_seed(400 + off + b)
+    B = b if mode != "retry_small" else max(128, b)
     for name, layout in _verify_layouts():
         P = layout.widths[0] * layout.z
-        for b in ((B, 32) if mode == "first" else
-                  (B,) if mode == "retry" else (1, 8)):
-            args = _tail_inputs(layout, b, B if mode != "first" else b, g)
-            if mode == "first":
-                merge = dict(mism=torch.randint(0, 9, (b,), generator=g,
-                                                device=dev,
-                                                dtype=torch.int32))
-            else:
-                old = torch.randint(0, 60, (B, 4), generator=g, device=dev,
-                                    dtype=torch.int32)
-                old[:, 0] = torch.randint(0, 3, (B,), generator=g,
-                                          device=dev)
-                merge = dict(hat=torch.randint(0, 2, (B, P), generator=g,
-                                               device=dev,
-                                               dtype=torch.uint8),
-                             stats=old)
-                pick = torch.randperm(B, generator=g, device=dev).cpu()
-                if mode == "retry":
-                    failed = np.zeros(B, bool)
-                    failed[pick[:11].numpy()] = True
-                    merge["failed"] = failed
-                else:
-                    merge["rows"] = pick[:b].numpy()
+        args = _tail_inputs(layout, b, B, g)
+        for label, merge in _tail_merges(mode, b, B, P, g):
             if off:
                 args = {k: (_off_alignment(v, off)
                             if isinstance(v, torch.Tensor) else v)
@@ -936,8 +954,8 @@ def test_verify_tail_on_card_matches_plain(dev, mode, off):
             torch.cuda.synchronize()
             assert wv.launches["verify_tail"] == before + 1
             want = wv.tail_plain(**args, **merge)
-            _same_out(got, want, (name, b))
-            if mode == "first":
+            _same_out(got, want, (name, b, label))
+            if mode == "first" and b >= 8:
                 ok = want[1][:, 0].bool().cpu()
                 assert ok.any() and not ok.all(), (name, b)
 
@@ -960,6 +978,23 @@ def test_verify_kernel_rejects_bad_inputs_on_card(dev):
                 stats=torch.zeros((4, 4), dtype=torch.int32, device=dev),
                 rows=np.array([1, 1, 2, 3]))
     assert wv.launches == before
+    # The kernel takes only the plan's own numbers: shared memory a word
+    # short, or a slice that leaves a group out, is refused (-1).
+    from qtpu_torch import _build
+    x, seed = args["rx_pin"], args["seed"]
+    b, P = x.shape
+    vh = seed.numel() - P + 1
+    p = wv.launch_plan(dev.index, b, b, P, vh)
+    out = torch.empty((b, vh), dtype=torch.uint8, device=dev)
+    for bad in (p._replace(smem=p.smem - 4),
+                p._replace(cluster=2, groups=1),
+                p._replace(cluster=3)):
+        with pytest.raises(RuntimeError, match=r"code -1"):
+            _build.call(wv.LIBRARY, "verify_hash",
+                        tuple(wv._ARGTYPES["verify_hash"]), dev,
+                        x.data_ptr(), seed.data_ptr(), b, P, vh,
+                        out.data_ptr(), bad.cluster, bad.groups,
+                        bad.threads, bad.smem)
 
 
 def test_bench_replay_on_card(dev):

@@ -15,14 +15,28 @@ compared on verified blocks only (XLA on the CPU contracts the decoder's
 ``alpha*min - c2v`` into an FMA, see tests/test_torch_window_programs.py).
 
 A numpy model of ``qtpu_torch/csrc/verify.cu`` (runs of 16 bytes packed
-to 16 bits by four multiplies, two runs to a word, a warp a contiguous
-run of words, lane l's hash bits l and
-l + 32 from funnel shifts of a three-word seed window, parity by popcount,
-the warps' words XORed; the payload column of a position by the kernel's
+to 16 bits by four multiplies, two runs to a word, lane l's hash bits l
+and l + 32 from funnel shifts of seed words (w, w + 1) and (w + 1, w + 2),
+the second reused as the first of word w + 1, parity by popcount, the
+slices' words XORed; the payload column of a position by the kernel's
 reciprocal of z; each mode's merge through the row map the wrapper
 builds) is held to the plain versions, exactly: the hash at P = 0, 1 and
 31 (mod 32), Vh = 1, 31, 32, 33 and 64, and rows that start one byte off
 alignment; the tail on the recorded calls of every mode.
+
+The launch plan (``window_verify.plan``, on a model of an H100's
+occupancy: the resident clusters the card reported) is held to the split
+the kernel makes: for every plan at 1, 8, 11, 32, 128 and 300 rows (the
+hash, the first decode and a retry of a few of them), P of production
+rungs 0, 4 and 9 and of z = 16, 24 and 10 codes, Vh 1, 31, 33 and 64,
+rows at offset 0 and one byte off, the XOR of the slices' partial hashes,
+each group's against only the 20 seed words its warp packs (every other
+seed word random), is ``hash_plain``'s, and the slices' error counts sum
+to ``tail_plain``'s.
+The plan's properties: every word in exactly one slice, whole groups of
+16 words, C <= 16, shared memory under the limit, a retry's kept rows on
+CTAs of their own after the merged rows' clusters, and a plan no card
+can schedule raises.
 
 The wrappers' checks run without a card: with ``_on_card`` patched to take
 the CPU for a card, malformed arguments raise ValueError before anything
@@ -80,56 +94,56 @@ def _pack(row: np.ndarray, words: int) -> np.ndarray:
 
 
 def _funnel(lo, hi, shift):
-    """__funnelshift_r(lo, hi, shift) for shift in 0..31."""
-    v = (np.uint64(hi) << np.uint64(32)) | np.uint64(lo)
-    return ((v >> shift.astype(np.uint64))
+    """__funnelshift_r(lo, hi, shift) for shift in 0..31, each word of lo
+    and hi (n,) against each shift (32,): (n, 32)."""
+    v = ((np.asarray(hi, np.uint64)[:, None] << np.uint64(32))
+         | np.asarray(lo, np.uint64)[:, None])
+    return ((v >> shift.astype(np.uint64)[None, :])
             & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
 
-def _warps(W: int) -> int:
-    """The warps a block of the kernel has: a warp per 8 words, 1..32."""
-    return min(32, max(1, -(-W // 8)))
-
-
-def _model_hash_row(x: np.ndarray, S: np.ndarray, vh: int) -> np.ndarray:
-    """(vh,) hash bits of one row ``x`` (P bytes) against the packed seed
-    ``S`` (SW + 3 words, zeros past the seed): warp k takes the words
-    [k·per, (k + 1)·per), lane l accumulates bits l and l + 32 over them
-    with a sliding three-word seed window; the warps' ballots are XORed."""
-    P = x.size
-    W = -(-P // 32)
-    X = _pack(x, W)
-    nw = _warps(W)
-    per = -(-W // nw)
+def _slice_hash(X: np.ndarray, S: np.ndarray, w0: int, w1: int) -> np.ndarray:
+    """(2,) partial hash words (bit l of word h: hash bit l + 32 h) of row
+    words X[w0:w1] against seed words S (S[w] the seed word of row word w,
+    read up to w1 + 1): lane l's accumulators take X[w] & fs(S[w], S[w + 1],
+    l) and X[w] & fs(S[w + 1], S[w + 2], l), parity by popcount."""
     lanes = np.arange(32)
+    w = np.arange(w0, w1)
     H = np.zeros(2, np.uint32)
-    for k in range(nw):
-        w0, w1 = k * per, min(W, (k + 1) * per)
-        acc = np.zeros((2, 32), np.uint32)
-        if w0 < w1:
-            a, b, c = S[w0], S[w0 + 1], S[w0 + 2]
-            for w in range(w0, w1):
-                acc[0] ^= X[w] & _funnel(a, b, lanes)
-                acc[1] ^= X[w] & _funnel(b, c, lanes)
-                a, b, c = b, c, S[w + 3]
-        parity = np.bitwise_count(acc) & 1
-        H ^= (parity.astype(np.uint64) << lanes.astype(np.uint64)).sum(
-            axis=1).astype(np.uint32)
+    if not w.size:
+        return H
+    for h, lo in enumerate((w, w + 1)):
+        acc = np.bitwise_xor.reduce(X[w, None] & _funnel(S[lo], S[lo + 1],
+                                                         lanes), axis=0)
+        parity = (np.bitwise_count(acc) & 1).astype(np.uint64)
+        H[h] = int((parity << lanes.astype(np.uint64)).sum())
+    return H
+
+
+def _hash_bits(H: np.ndarray, vh: int) -> np.ndarray:
     j = np.arange(vh)
     return ((H[j // 32] >> (j % 32).astype(np.uint32)) & 1).astype(np.uint8)
 
 
-def _packed_seed(seed: np.ndarray) -> np.ndarray:
-    SW = -(-seed.size // 32)
-    return np.concatenate([_pack(seed, SW), np.zeros(3, np.uint32)])
+def _model_hash_row(x: np.ndarray, S: np.ndarray, vh: int) -> np.ndarray:
+    """(vh,) hash bits of one row ``x`` (P bytes) against the packed seed
+    ``S`` (zeros past the seed, through word 16 G + 3): the row's groups of
+    16 words, each hashed by one warp, XORed."""
+    G = wv._groups(x.size)
+    return _hash_bits(_slice_hash(_pack(x, 16 * G), S, 0, 16 * G), vh)
+
+
+def _packed_seed(seed: np.ndarray, words: int) -> np.ndarray:
+    """The seed packed to ``words`` words (zeros past it)."""
+    return _pack(seed, words)
 
 
 def _model_hash(buf: np.ndarray, offset: int, b: int, P: int,
                 seed: np.ndarray) -> np.ndarray:
     """(b, Vh) hashes of the rows of ``buf`` from byte ``offset`` on, row d
     at offset + d·P (the kernel's addressing)."""
-    S = _packed_seed(seed)
     vh = seed.size - P + 1
+    S = _packed_seed(seed, 16 * (wv._groups(P) + 1))
     return np.stack([_model_hash_row(buf[offset + d * P:offset + (d + 1) * P],
                                      S, vh) for d in range(b)])
 
@@ -166,7 +180,7 @@ def _model_tail(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
     src = (np.arange(b) if mode == wv.FIRST
            else wv._source_rows(mode, failed, rows, b, rows_out))
     where = _payload_source(layout)
-    S = _packed_seed(seed)
+    S = _packed_seed(seed, 16 * (wv._groups(P) + 1))
     hat_out = np.zeros((rows_out, P), np.uint8)
     st = np.zeros((rows_out, 4), np.int32)
     for d in range(rows_out):
@@ -198,7 +212,7 @@ def test_kernel_word_model_equals_hash_plain(P, vh, offset):
     """The kernel's word algorithm == hash_plain, at P = 0, 1 and 31
     (mod 32), Vh across the two words a lane holds, rows at offset 0 and
     one byte off alignment (each row P bytes after the last); P = 2,240
-    gives the block 9 warps, the last with fewer words."""
+    is 5 groups of 16 words, the last with 6."""
     rng = np.random.default_rng(P * 100 + vh)
     b = 3
     buf = rng.integers(0, 2, offset + b * P, dtype=np.uint8)
@@ -257,6 +271,214 @@ def test_kernel_column_lookup_equals_the_payload_extract(z):
     pay = wv._payload_columns(layout)
     want = bits.reshape(2, nb, z)[:, pay, :].reshape(2, P)
     np.testing.assert_array_equal(bits[:, _payload_source(layout)], want)
+
+
+# ---------------------------------------------------------------------------
+# The launch plan and the split it makes.
+
+# cudaOccupancyMaxActiveClusters of the tail's kernel on an NVIDIA H100
+# 80GB HBM3 (132 SMs) at one, two and four CTAs an SM (1,024, 512 and 256
+# threads at 64 registers a thread), by cluster size.
+H100_CLUSTERS = {1: (132, 264, 528), 2: (66, 132, 264), 4: (30, 62, 124),
+                 8: (15, 30, 62), 16: (7, 14, 28)}
+
+
+def _occupancy(C, threads, smem):
+    """A model of cudaOccupancyMaxActiveClusters on an H100: the CTAs an
+    SM holds (2,048 threads and 65,536 registers at 64 a thread, 32 CTAs,
+    227 KB of shared memory), and the clusters the card reported at one,
+    two and four CTAs an SM (more CTAs an SM: four's, in proportion)."""
+    per_sm = min(2048 // threads, 65536 // (64 * threads), 32,
+                 232448 // (smem + 1024))
+    if per_sm <= 0:
+        return 0
+    one, two, four = H100_CLUSTERS[C]
+    return {1: one, 2: two, 3: two, 4: four}.get(per_sm, four * per_sm // 4)
+
+
+SMS = 132
+PLAN_ROWS = [1, 8, 11, 32, 128, 300]
+
+
+@pytest.fixture(scope="module")
+def plan_layouts():
+    """name -> ColumnLayout: production rungs 0, 4 and 9 (z = 2,048), and
+    codes of z = 16, 24 and 10."""
+    from qtpu_torch.ldpc.codes import make_rate_ladder
+    from qtpu_torch.pipeline import production_config
+    cfg = production_config()
+    steps = make_rate_ladder(cfg.n, cfg.dv, cfg.target_rates,
+                             seed=cfg.code_seed, alg=cfg.alg,
+                             family=cfg.family).steps
+    out = {}
+    for r in (0, 4, 9):
+        st = steps[r]
+        sh, pu = list(st.short_cols), list(st.punct_cols)
+        out[f"r{r}"] = ColumnLayout(st.code.nb, st.code.z,
+                                    [c for c in range(st.code.nb)
+                                     if c not in sh + pu], sh, pu)
+    out["z=16"] = ColumnLayout(12, 16, [0, 2, 3, 5, 8, 9, 11], [1, 4],
+                               [6, 7, 10])
+    out["z=24"] = ColumnLayout(8, 24, [0, 2, 3, 5, 6, 7], [1], [4])
+    out["z=10"] = ColumnLayout(24, 10, list(range(2, 24)), [0], [1])
+    return out
+
+
+def _plans(rows, P, vh, nb):
+    """{label: Plan} of a call at ``rows``: the hash, the first decode and
+    (more than one row) a retry that merges rows // 12 + 1 of them."""
+    out = {"hash": wv.plan(rows, rows, P, vh, 0, False, SMS, _occupancy),
+           "first": wv.plan(rows, rows, P, vh, nb, True, SMS, _occupancy)}
+    if rows > 1:
+        out["retry"] = wv.plan(rows, rows // 12 + 1, P, vh, nb, True, SMS,
+                               _occupancy)
+    return out
+
+
+def _group_seed(g, full, rng):
+    """The seed words a warp packs for group g, indexed by row word: the
+    group's 16 and the next 4 (from the seed's runs, zeros past it), every
+    other word random."""
+    S = rng.integers(0, 1 << 32, full.size, dtype=np.uint64).astype(np.uint32)
+    S[16 * g:16 * g + 20] = full[16 * g:16 * g + 20]
+    return S
+
+
+@pytest.mark.parametrize("layout_name", ["r0", "r4", "r9", "z=16", "z=24",
+                                         "z=10"])
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_split_slices_equal_the_plain_versions(plan_layouts, rows,
+                                               layout_name):
+    """For every plan: the XOR of the slices' partial hashes, each group's
+    against only the seed words its warp packs, == hash_plain, and the
+    slices' error counts sum to tail_plain's, at Vh 1, 31, 33 and 64, rows
+    at offset 0 and one byte off alignment (two rows a plan)."""
+    layout = plan_layouts[layout_name]
+    P = layout.widths[0] * layout.z
+    rng = np.random.default_rng(rows * 7 + P)
+    for vh in (1, 31, 33, 64):
+        plans = _plans(rows, P, vh, layout.nb)
+        for offset in (0, 1):
+            b = 2
+            t = (lambda *shape: torch.from_numpy(
+                rng.integers(0, 2, shape, dtype=np.uint8)))
+            buf = rng.integers(0, 2, offset + b * P, dtype=np.uint8)
+            rx_pin = torch.from_numpy(buf[offset:].reshape(b, P).copy())
+            seed = t(P + vh - 1)
+            rx_orig = t(b, P)
+            hat, stats = wv.tail_plain(
+                t(b, layout.nb * layout.z), rx_pin,
+                t(b, P).to(torch.bool), rx_orig, seed, t(b, vh),
+                torch.ones(b, dtype=torch.bool),
+                torch.zeros(b, dtype=torch.int32), layout,
+                torch.zeros(b, dtype=torch.int32))
+            want = wv.hash_plain(hat, seed).numpy()
+            diff = (hat ^ rx_orig).numpy().astype(np.int64)
+            G = wv._groups(P)
+            X = [_pack(h, 16 * G + 4) for h in hat.numpy()]
+            full = _packed_seed(seed.numpy(), 16 * G + 20)
+            seeds = [_group_seed(g, full, rng) for g in range(G)]
+            for label, p in plans.items():
+                for d in range(b):
+                    H = np.zeros(2, np.uint32)
+                    errs = 0
+                    for rank in range(p.cluster):
+                        w0, w1 = p.words(rank, P)
+                        for g in range(w0 // 16, w1 // 16):
+                            H ^= _slice_hash(X[d], seeds[g], 16 * g,
+                                             16 * g + 16)
+                        errs += int(diff[d, 32 * w0:32 * w1].sum())
+                    np.testing.assert_array_equal(
+                        _hash_bits(H, vh), want[d],
+                        err_msg=f"{label} {p} vh={vh} offset={offset}")
+                    assert errs == int(stats[d, 2]), (label, p, vh)
+
+
+@pytest.mark.parametrize("P", [144, 220, 112, 3584, 2240, 61440, 63488,
+                               1 << 17])
+@pytest.mark.parametrize("vh", [1, 64])
+def test_plan_properties(P, vh):
+    """At every row count and merged count: the slices cover each of the
+    row's words exactly once in whole groups of 16 (a group's hash reads
+    the seed words of the group and the next two, within the 20 its warp
+    packs); C <= 16, each CTA at least one group; shared memory under the
+    limit; the merged rows' CTAs are whole clusters, and a retry's kept
+    rows have CTAs of their own after them."""
+    W = -(-P // 32)
+    G = wv._groups(P)
+    for rows in PLAN_ROWS + [1024]:
+        for merged in sorted({rows, rows // 12 + 1, 1, 0, rows - 1}):
+            if not 0 <= merged <= rows:
+                continue
+            for tail in (True, False):
+                if not tail and merged != rows:
+                    continue
+                p = wv.plan(rows, merged, P, vh, 32, tail, SMS, _occupancy)
+                C = p.cluster
+                assert all(type(v) is int for v in p), p
+                assert C in wv.CLUSTER_SIZES and C <= G, p
+                assert p.groups == (G if C == 1 else -(-G // C)), p
+                assert p.smem == wv.smem_bytes(p.threads, 32 if tail else 0)
+                assert p.smem <= wv.SMEM_MAX and p.threads % 32 == 0 \
+                    and 32 <= p.threads <= 1024, p
+                assert p.decoded_ctas == C * merged, p
+                assert p.kept_ctas % C == 0, p
+                assert (p.kept_ctas > 0) == (rows > merged), (rows, merged, p)
+                covered = np.zeros(16 * G, np.int64)
+                for rank in range(C):
+                    w0, w1 = p.words(rank, P)
+                    assert w0 % 16 == 0 and w1 % 16 == 0 and w0 <= w1, p
+                    covered[w0:w1] += 1
+                np.testing.assert_array_equal(covered[:W], 1)
+                np.testing.assert_array_equal(covered, covered.clip(0, 1))
+
+
+def test_plan_picks_by_occupancy_and_raises_when_nothing_fits():
+    """The split follows the card: with clusters of 16 unschedulable the
+    one-row plan takes a smaller C; with no cluster schedulable it
+    raises; a call it does not take is refused."""
+    P = 63488
+    p = wv.plan(1, 1, P, 64, 32, True, SMS, _occupancy)
+    assert p.cluster >= 8, p
+    # B = 128: a CTA a row of 1,024 threads.
+    p = wv.plan(128, 128, P, 64, 32, True, SMS, _occupancy)
+    assert (p.cluster, p.threads, p.decoded_ctas) == (1, 1024, 128), p
+    # A shard's 32 rows: each over a cluster of CTAs, 64 or more in all.
+    p = wv.plan(32, 32, P, 64, 32, True, SMS, _occupancy)
+    assert p.cluster > 1 and p.decoded_ctas >= 64, p
+    only4 = (lambda C, t, s: _occupancy(C, t, s) if C <= 4 else 0)
+    p = wv.plan(1, 1, P, 64, 32, True, SMS, only4)
+    assert p.cluster == 4, p
+    with pytest.raises(RuntimeError, match="can be scheduled"):
+        wv.plan(32, 32, P, 64, 32, True, SMS, lambda C, t, s: 0)
+    with pytest.raises(ValueError, match="no plan"):
+        wv.plan(4, 2, P, 64, 0, False, SMS, _occupancy)
+    with pytest.raises(ValueError, match="no plan"):
+        wv.plan(4, 4, P, 65, 32, True, SMS, _occupancy)
+
+
+@pytest.mark.parametrize("mode", [wv.RETRY, wv.RETRY_SMALL])
+def test_row_order_puts_merged_rows_first(mode):
+    """The retries' row order: the merged window rows (retry_small's in
+    the order of its decoded rows, which need not be contiguous or sorted),
+    then the kept rows, each row once; the kernel's decoded row of item k
+    (retry_program: the window row itself; retry_small: k) maps back."""
+    B = 12
+    if mode == wv.RETRY:
+        failed = np.zeros(B, bool)
+        failed[[1, 4, 5, 10]] = True
+        src = wv._source_rows(mode, failed, None, B, B)
+    else:
+        rows = np.array([9, 2, 7])
+        src = wv._source_rows(mode, None, rows, 3, B)
+    order, merged = wv._row_order(src)
+    assert sorted(order.tolist()) == list(range(B))
+    assert (src[order[:merged]] >= 0).all() and (src[order[merged:]] < 0).all()
+    for k in range(merged):
+        i = order[k] if mode == wv.RETRY else k
+        assert src[order[k]] == i
+    if mode == wv.RETRY_SMALL:
+        assert order[:merged].tolist() == [9, 2, 7]
 
 
 # ---------------------------------------------------------------------------
