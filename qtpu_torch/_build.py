@@ -117,7 +117,9 @@ def load(name: str) -> ctypes.CDLL:
     process."""
     global build_events
     if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build(name)[0]))
+        from qtpu_torch import tracing
+        with tracing.span("build"):
+            _LIBS[name] = ctypes.CDLL(str(build(name)[0]))
         build_events += 1
     return _LIBS[name]
 

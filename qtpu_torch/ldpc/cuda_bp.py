@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qtpu_torch import tracing
 from qtpu_torch.ldpc.codes import QCCode
 from qtpu_torch.ldpc.decode import (BatchDecodeResult, make_flooding_decoder,
                                     make_layered_decoder)
@@ -296,6 +297,11 @@ def make_cuda_decoder(code: QCCode, max_iters: int, alpha: float = 0.8125,
     tables: dict = {}
 
     def decode(llr: torch.Tensor, syndrome: torch.Tensor) -> BatchDecodeResult:
+        with tracing.span("decode"):
+            return checked(llr, syndrome)
+
+    def checked(llr: torch.Tensor,
+                syndrome: torch.Tensor) -> BatchDecodeResult:
         if llr.device.type == "cpu" and syndrome.device.type == "cpu":
             return plain(llr, syndrome)
         if not (llr.is_cuda and syndrome.device == llr.device):
@@ -316,8 +322,11 @@ def make_cuda_decoder(code: QCCode, max_iters: int, alpha: float = 0.8125,
             return BatchDecodeResult(*_outputs(0, nb * z, dev))
         if dev not in tables:
             tables[dev] = torch.from_numpy(tab_np).to(dev)
-        res = _launch(name, code, tables[dev], llr, syndrome, max_iters,
-                      alpha, plan(code, dev, B))
+        with tracing.span("decode.plan"):
+            shape = plan(code, dev, B)
+        with tracing.span("decode.launch"):
+            res = _launch(name, code, tables[dev], llr, syndrome, max_iters,
+                          alpha, shape)
         launches[name] += 1
         launch_batches[name][B] += 1
         return res

@@ -28,6 +28,11 @@ stalling.  ``BobSession(mesh=...)`` shards Bob's decode program over a
 comes from the program's psum'd ledger, and a stream-PA flush is the
 sharded hash (``qtpu_torch.parallel.make_stream_pa``).
 
+Each handler, window-program call, the PA's host side, the key drain
+(on the calling thread and on the drain worker) and the set-up steps are
+``qtpu_torch.tracing`` spans carrying their window id; they record only
+while a ``torch.profiler`` session runs or inside ``tracing.recording()``.
+
 Key protocol changes vs round 2 (both parties must agree — this is the
 wire-compatible v2):
 
@@ -66,7 +71,7 @@ import numpy as np
 import torch
 
 from qtpu_torch import pa as pa_mod
-from qtpu_torch import prng
+from qtpu_torch import prng, tracing
 from qtpu_torch.accounting import LEDGER_FIELDS, Ledger
 from qtpu_torch.devices import DEFAULT_DEVICE, resolve_device
 from qtpu_torch.ldpc.codes import RateLadder, make_rate_ladder
@@ -103,6 +108,12 @@ class _HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+def _derive(key, *path) -> np.ndarray:
+    """``prng.derive`` inside a ``host.prng_derive`` span."""
+    with tracing.span("host.prng_derive"):
+        return prng.derive(key, *path)
 
 
 def _on_device(a, device) -> torch.Tensor:
@@ -267,9 +278,10 @@ class _Party:
         self.config = config
         self.device = resolve_device(device)
         self._mesh = mesh
-        self.ladder: RateLadder = make_rate_ladder(
-            config.n, config.dv, config.target_rates, seed=config.code_seed,
-            alg=config.alg, family=config.family)
+        with tracing.span("setup.ladder"):
+            self.ladder: RateLadder = make_rate_ladder(
+                config.n, config.dv, config.target_rates,
+                seed=config.code_seed, alg=config.alg, family=config.family)
         self.session = prng.root_key(session_seed)
         self.ledger = Ledger()
         self.stream = DeviceStream(config.stream_capacity_bits,
@@ -351,13 +363,14 @@ class _Party:
             else:
                 smx = P // 8
             smx = max(g, min(P // 4, smx))
-            progs = make_window_programs(
-                step.code, pos["payload"], pos["punct"], pos["short"],
-                self.config.max_iters, self.config.alg,
-                self.config.verify_hash_bits, l_max,
-                batch=self.config.blocks_per_window, k_pb=k_max,
-                s_max=smx, retry_bits=retry_bits, device=self.device,
-                mesh=self._mesh)
+            with tracing.span("setup.programs"):
+                progs = make_window_programs(
+                    step.code, pos["payload"], pos["punct"], pos["short"],
+                    self.config.max_iters, self.config.alg,
+                    self.config.verify_hash_bits, l_max,
+                    batch=self.config.blocks_per_window, k_pb=k_max,
+                    s_max=smx, retry_bits=retry_bits, device=self.device,
+                    mesh=self._mesh)
             self._programs[rate_index] = progs
             _PROGRAM_CACHE[ck] = progs
             programs_made += 1
@@ -398,25 +411,25 @@ class _Party:
     # -- per-window keys --------------------------------------------------
 
     def _window_key(self, window_id: int) -> np.ndarray:
-        return prng.key_data(prng.derive(self.session, "win", window_id))
+        return prng.key_data(_derive(self.session, "win", window_id))
 
     def _affine_for(self, window_id: int, P: int) -> tuple[int, int, int]:
         """Protocol-deterministic affine stride (a, a^-1, b) for the
         window's disclosure positions (identical on both parties)."""
-        key = prng.derive(self.session, "affine", window_id)
-        gen = np.random.default_rng(prng.key_to_numpy_seed(key))
-        a, ainv = choose_affine(gen.integers(2, P, size=64), P)
-        return a, ainv, int(gen.integers(0, P))
+        with tracing.span("host.affine_for", window_id):
+            key = _derive(self.session, "affine", window_id)
+            gen = np.random.default_rng(prng.key_to_numpy_seed(key))
+            a, ainv = choose_affine(gen.integers(2, P, size=64), P)
+            return a, ainv, int(gen.integers(0, P))
 
     def _pa_key(self, window_id: int, extra: int) -> np.ndarray:
-        return prng.key_data(prng.derive(self.session, "pa", window_id,
-                                         extra))
+        return prng.key_data(_derive(self.session, "pa", window_id, extra))
 
     def _retry_positions(self, window_id: int, round_: int, p_bits: int,
                          k: int) -> np.ndarray:
         """Payload-position indices disclosed in this retry round (both
         parties derive the identical set)."""
-        key = prng.derive(self.session, "retry", window_id, round_)
+        key = _derive(self.session, "retry", window_id, round_)
         return np.asarray(prng.subset_indices(key, p_bits, k), np.int32)
 
     # -- verification / PA ----------------------------------------------
@@ -446,30 +459,33 @@ class _Party:
         The (B, l_max) output is bit-packed ON DEVICE and kept as a pending
         chunk; the host fetches bits only at drain time.
         """
-        B = self.config.blocks_per_window
-        prog = self.programs(rate_index)
-        l_base = self._final_base_length(rate_index, k_pb, short_bits)
-        if l_base == 0 or prog.l_max == 0:
-            return 0
-        if extra_leak is None:
-            extra_leak = np.zeros(B, np.int64)
-        blocks = []
-        total = 0
-        for b in range(B):
-            l = max(0, min(l_base - int(extra_leak[b]), prog.l_max))
-            if ok_mask[b] and l > 0:
-                blocks.append((b, l))
-                total += l
-        if not blocks:
-            return 0
-        fk = prog.pa(payload_dev, self._pa_key(window_id, 0))
-        # Start the device->host transfer NOW, in the background: by drain
-        # time the bits are already host-side, so the drain never has to
-        # sync the device queue.
-        packed = _HostCopy(prog.pack(fk))
-        self._final_chunks.append({
-            "window": window_id, "packed": packed, "blocks": blocks})
-        return total
+        with tracing.span("pa.host_total", window_id):
+            B = self.config.blocks_per_window
+            prog = self.programs(rate_index)
+            l_base = self._final_base_length(rate_index, k_pb, short_bits)
+            if l_base == 0 or prog.l_max == 0:
+                return 0
+            if extra_leak is None:
+                extra_leak = np.zeros(B, np.int64)
+            blocks = []
+            total = 0
+            for b in range(B):
+                l = max(0, min(l_base - int(extra_leak[b]), prog.l_max))
+                if ok_mask[b] and l > 0:
+                    blocks.append((b, l))
+                    total += l
+            if not blocks:
+                return 0
+            with tracing.span("program.pa"):
+                fk = prog.pa(payload_dev, self._pa_key(window_id, 0))
+            # Start the device->host transfer NOW, in the background: by
+            # drain time the bits are already host-side, so the drain never
+            # has to sync the device queue.
+            with tracing.span("program.pack"):
+                packed = _HostCopy(prog.pack(fk))
+            self._final_chunks.append({
+                "window": window_id, "packed": packed, "blocks": blocks})
+            return total
 
     @staticmethod
     def _materialize_chunks(chunks: list) -> tuple[list, list]:
@@ -497,33 +513,38 @@ class _Party:
             self._drain_pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="qtpu-drain")
         self._drain_futs.append(
-            self._drain_pool.submit(self._materialize_chunks, chunks))
+            self._drain_pool.submit(_materialize_on_worker, chunks))
 
     def _drain_chunks(self) -> None:
         """Materialize all pending key chunks host-side (bit-packed — 8x
         smaller on the wire).  Joins any in-flight worker drains (in
         submission order), then drains the leftovers inline."""
-        futs, self._drain_futs = self._drain_futs, []
-        for f in futs:
-            idx, bits = f.result()
-            self.final_key_index.extend(idx)
-            self._final_host.extend(bits)
-        chunks, self._final_chunks = self._final_chunks, []
-        if chunks:
-            idx, bits = self._materialize_chunks(chunks)
-            self.final_key_index.extend(idx)
-            self._final_host.extend(bits)
-        # Emit-order invariant: the two parties can FINALIZE windows in
-        # different orders (a resurrected window finalizes late on the
-        # aborting side only; a retried window re-enters Bob's resolve
-        # queue at the tail) — keep the parallel lists sorted by
-        # (window, block) so final_key_bits and keystore iteration agree
-        # bit-for-bit on both sides regardless of local finalize order.
-        order = sorted(range(len(self.final_key_index)),
-                       key=lambda i: self.final_key_index[i])
-        if order != list(range(len(order))):
-            self.final_key_index = [self.final_key_index[i] for i in order]
-            self._final_host = [self._final_host[i] for i in order]
+        with tracing.span("drain"):
+            futs, self._drain_futs = self._drain_futs, []
+            with tracing.span("drain.join"):
+                for f in futs:
+                    idx, bits = f.result()
+                    self.final_key_index.extend(idx)
+                    self._final_host.extend(bits)
+            chunks, self._final_chunks = self._final_chunks, []
+            if chunks:
+                with tracing.span("drain.unpack"):
+                    idx, bits = self._materialize_chunks(chunks)
+                self.final_key_index.extend(idx)
+                self._final_host.extend(bits)
+            # Emit-order invariant: the two parties can FINALIZE windows in
+            # different orders (a resurrected window finalizes late on the
+            # aborting side only; a retried window re-enters Bob's resolve
+            # queue at the tail) — keep the parallel lists sorted by
+            # (window, block) so final_key_bits and keystore iteration agree
+            # bit-for-bit on both sides regardless of local finalize order.
+            with tracing.span("drain.sort"):
+                order = sorted(range(len(self.final_key_index)),
+                               key=lambda i: self.final_key_index[i])
+                if order != list(range(len(order))):
+                    self.final_key_index = [self.final_key_index[i]
+                                            for i in order]
+                    self._final_host = [self._final_host[i] for i in order]
 
     def _maybe_drain(self) -> None:
         if len(self._final_chunks) >= self.config.drain_windows:
@@ -612,7 +633,7 @@ class _Party:
         n_pad = max(1 << 16, 1 << (size - 1).bit_length())
         padded = torch.zeros(n_pad, dtype=torch.uint8, device=self.device)
         padded[:size] = torch.cat(parts)
-        key = prng.derive(self.session, "pa-stream", flush_idx)
+        key = _derive(self.session, "pa-stream", flush_idx)
         t = torch.from_numpy(prng.random_bits(key, (m + n_pad - 1,)))
         if self._mesh is not None:
             fk = make_stream_pa(self._mesh, n_pad, m)(t.to(self.device),
@@ -636,9 +657,10 @@ class _Party:
         """Append sifted bits: host np.ndarray or a device uint8 array
         (device arrays append with zero host↔device traffic).  ``n``:
         valid prefix of a PADDED device buffer (sift-stage output)."""
-        count = int(bits.shape[0]) if n is None else int(n)
-        self.ledger.add(sifted_bits=count)
-        self.stream.push(bits, n)
+        with tracing.span("push_sifted"):
+            count = int(bits.shape[0]) if n is None else int(n)
+            self.ledger.add(sifted_bits=count)
+            self.stream.push(bits, n)
 
     def _sync_auth_bits(self) -> None:
         """Charge channel-authentication key consumption (AuthedLink /
@@ -820,6 +842,14 @@ class _Party:
         self._credit_stream_flush()
 
 
+def _materialize_on_worker(chunks: list) -> tuple[list, list]:
+    """``_Party._materialize_chunks`` as the drain worker runs it, in a
+    ``drain.materialize`` span holding the windows it covers."""
+    with tracing.span("drain.materialize",
+                      tuple(c["window"] for c in chunks)):
+        return _Party._materialize_chunks(chunks)
+
+
 class AliceSession(_Party):
     """Source-side (encoder) session: opens windows, sends syndromes with
     inline QBER disclosure."""
@@ -839,8 +869,8 @@ class AliceSession(_Party):
         self._uncorrectable_streak = 0
 
     def _private_key(self, window_id: int) -> np.ndarray:
-        return prng.key_data(prng.derive(self._private_root, "punct",
-                                         window_id))
+        return prng.key_data(_derive(self._private_root, "punct",
+                                     window_id))
 
     def _reserved_bits(self) -> int:
         """Stream bits reserved by in-flight windows that have not yet
@@ -857,19 +887,24 @@ class AliceSession(_Party):
     def start_window(self) -> None:
         """Open a window: no stream is consumed until the rung is known."""
         w = max(self._next_start, self.window_id)
-        self._next_start = w + 1
-        self._inflight[w] = {"stage": "opened", "consumed": 0}
-        self.link.send(WindowOpen(window_id=w))
+        with tracing.span("alice.start_window", w):
+            self._next_start = w + 1
+            self._inflight[w] = {"stage": "opened", "consumed": 0}
+            self.link.send(WindowOpen(window_id=w))
 
     def on_message(self, msg: Message) -> None:
-        if isinstance(msg, RateSelect):
-            self._on_rate_select(msg)
-        elif isinstance(msg, VerifyAck):
-            self._on_verify_ack(msg)
-        elif isinstance(msg, Abort):
-            self._on_abort(msg)
-        else:
-            raise ValueError(f"Alice got unexpected {type(msg).__name__}")
+        with tracing.span("alice.on_message", msg.window_id):
+            if isinstance(msg, RateSelect):
+                with tracing.span("alice.on_rate_select"):
+                    self._on_rate_select(msg)
+            elif isinstance(msg, VerifyAck):
+                with tracing.span("alice.on_verify_ack"):
+                    self._on_verify_ack(msg)
+            elif isinstance(msg, Abort):
+                self._on_abort(msg)
+            else:
+                raise ValueError(
+                    f"Alice got unexpected {type(msg).__name__}")
 
     def retransmit_window(self, window_id: int) -> bool:
         """Re-send the Syndromes message for a stuck window (lost
@@ -921,8 +956,9 @@ class AliceSession(_Party):
         header = make_header(self.stream.start, s, self._window_key(w),
                              self._private_key(w), test_bits_pb=k_pb,
                              affine=self._affine_for(w, P))
-        payload, syn, hashes, test_bits, short_vals = prog.alice(
-            self.stream.arena, header)
+        with tracing.span("program.alice"):
+            payload, syn, hashes, test_bits, short_vals = prog.alice(
+                self.stream.arena, header)
         self.stream.consume(take)
         disclosed = ((k_pb + s) * B, step.leaked_bits() * B,
                      self.config.verify_hash_bits * B)
@@ -971,7 +1007,8 @@ class AliceSession(_Party):
             # can pin those bits and re-decode.  The window stays in flight.
             k = prog.retry_bits
             positions = self._retry_positions(w, rounds, P, k)
-            bits = prog.retry_gather(st["payload_dev"], positions)
+            with tracing.span("program.retry_gather"):
+                bits = prog.retry_gather(st["payload_dev"], positions)
             extra[failed] += k
             self.ledger.add(syndrome_bits=k * int(failed.sum()))
             dq, ds, dh = st["disclosed"]
@@ -1092,23 +1129,24 @@ class BobSession(_Party):
         many windows a BLOCKING call resolves (resolve-the-oldest-only
         keeps later windows queued on the device instead of draining the
         pipeline)."""
-        did = False
-        resolved = 0
-        while self._pending:
-            w = self._pending[0]
-            st = self._inflight.get(w)
-            if st is not None and st["stage"] == "decoding":
-                if not block and not st["stats_host"].ready():
-                    return did
-                self._pending.pop(0)
-                self._resolve_decode(w, st)
-                did = True
-                resolved += 1
-                if block and limit and resolved >= limit:
-                    return did
-            else:
-                self._pending.pop(0)
-        return did
+        with tracing.span("bob.flush"):
+            did = False
+            resolved = 0
+            while self._pending:
+                w = self._pending[0]
+                st = self._inflight.get(w)
+                if st is not None and st["stage"] == "decoding":
+                    if not block and not st["stats_host"].ready():
+                        return did
+                    self._pending.pop(0)
+                    self._resolve_decode(w, st)
+                    did = True
+                    resolved += 1
+                    if block and limit and resolved >= limit:
+                        return did
+                else:
+                    self._pending.pop(0)
+            return did
 
     def push_sifted(self, bits, n: int | None = None) -> None:
         super().push_sifted(bits, n)
@@ -1125,22 +1163,25 @@ class BobSession(_Party):
         self.qest.restore(state.get("qber_prior", [0.0, 0.0]))
 
     def on_message(self, msg: Message) -> None:
-        if isinstance(msg, WindowOpen):
-            self._on_open(msg)
-        elif isinstance(msg, Syndromes):
-            self._on_syndromes(msg)
-        elif isinstance(msg, RetryDisclose):
-            # Retries reference resolved decode state — but only THIS
-            # window's: a full flush here drained the whole device pipeline
-            # on every retry round (~2/3 of windows at production FER),
-            # serializing the stream each time.
-            self._resolve_window(msg.window_id)
-            self._on_retry(msg)
-        elif isinstance(msg, Abort):
-            self._resolve_window(msg.window_id)
-            self._on_abort(msg)
-        else:
-            raise ValueError(f"Bob got unexpected {type(msg).__name__}")
+        with tracing.span("bob.on_message", msg.window_id):
+            if isinstance(msg, WindowOpen):
+                self._on_open(msg)
+            elif isinstance(msg, Syndromes):
+                with tracing.span("bob.on_syndromes"):
+                    self._on_syndromes(msg)
+            elif isinstance(msg, RetryDisclose):
+                # Retries reference resolved decode state — but only THIS
+                # window's: a full flush here drained the whole device
+                # pipeline on every retry round (~2/3 of windows at
+                # production FER), serializing the stream each time.
+                self._resolve_window(msg.window_id)
+                with tracing.span("bob.on_retry"):
+                    self._on_retry(msg)
+            elif isinstance(msg, Abort):
+                self._resolve_window(msg.window_id)
+                self._on_abort(msg)
+            else:
+                raise ValueError(f"Bob got unexpected {type(msg).__name__}")
 
     def _resolve_window(self, window_id: int) -> None:
         """Resolve ONLY this window's pending decode (if any).
@@ -1196,36 +1237,37 @@ class BobSession(_Party):
 
     def _service_opens(self) -> None:
         """Answer queued WindowOpens (FIFO) while stream bits allow."""
-        while self._open_q:
-            if self.dead:
-                w = self._open_q.popleft()
-                self._retire_window(w, None)
-                self._send_abort(w, "session-dead")
-                self.window_id = max(self.window_id, w + 1)
-                continue
-            w = self._open_q[0]
-            q, q_ucb = self.qest.prior_estimate(self.config.qber_initial)
-            if self._uncorrectable(q_ucb):
+        with tracing.span("bob.service_opens"):
+            while self._open_q:
+                if self.dead:
+                    w = self._open_q.popleft()
+                    self._retire_window(w, None)
+                    self._send_abort(w, "session-dead")
+                    self.window_id = max(self.window_id, w + 1)
+                    continue
+                w = self._open_q[0]
+                q, q_ucb = self.qest.prior_estimate(self.config.qber_initial)
+                if self._uncorrectable(q_ucb):
+                    self._open_q.popleft()
+                    self._uncorrectable_streak += 1
+                    if (self._uncorrectable_streak
+                            >= self.config.max_uncorrectable_windows):
+                        self.dead = True
+                    self._retire_window(w, None)
+                    self._send_abort(w, "qber-uncorrectable")
+                    self.window_id = max(self.window_id, w + 1)
+                    continue
+                q, r, s, k_pb = self._choose()
+                need = self.window_payload_bits(r)
+                if self.stream.remaining - self._reserved_bits() < need:
+                    return  # wait for more sifted bits
                 self._open_q.popleft()
-                self._uncorrectable_streak += 1
-                if (self._uncorrectable_streak
-                        >= self.config.max_uncorrectable_windows):
-                    self.dead = True
-                self._retire_window(w, None)
-                self._send_abort(w, "qber-uncorrectable")
-                self.window_id = max(self.window_id, w + 1)
-                continue
-            q, r, s, k_pb = self._choose()
-            need = self.window_payload_bits(r)
-            if self.stream.remaining - self._reserved_bits() < need:
-                return  # wait for more sifted bits
-            self._open_q.popleft()
-            self._inflight[w] = {"stage": "rate_sent", "qber": q,
-                                 "rate_index": r, "short_bits": s,
-                                 "k_pb": k_pb, "consumed": 0}
-            self.link.send(RateSelect(
-                window_id=w, qber_milli=int(round(q * 1000)),
-                rate_index=r, short_bits=s, test_bits_pb=k_pb))
+                self._inflight[w] = {"stage": "rate_sent", "qber": q,
+                                     "rate_index": r, "short_bits": s,
+                                     "k_pb": k_pb, "consumed": 0}
+                self.link.send(RateSelect(
+                    window_id=w, qber_milli=int(round(q * 1000)),
+                    rate_index=r, short_bits=s, test_bits_pb=k_pb))
 
     def _on_syndromes(self, msg: Syndromes) -> None:
         w = msg.window_id
@@ -1272,10 +1314,12 @@ class BobSession(_Party):
         # goes back to the link.
         syndromes_dev = _on_device(msg.syndromes, self.device)
         exp_hashes_dev = _on_device(msg.verify_hashes, self.device)
-        out = prog.bob(
-            self.stream.arena, header, _on_device(test_alice, self.device),
-            _on_device(short_alice, self.device), syndromes_dev,
-            exp_hashes_dev, mag)
+        with tracing.span("program.bob"):
+            out = prog.bob(
+                self.stream.arena, header,
+                _on_device(test_alice, self.device),
+                _on_device(short_alice, self.device), syndromes_dev,
+                exp_hashes_dev, mag)
         self.stream.consume(take)
         disclosed = ((k_pb + s) * B, step.leaked_bits() * B,
                      self.config.verify_hash_bits * B)
@@ -1303,40 +1347,41 @@ class BobSession(_Party):
         """Second half of _on_syndromes / _on_retry: force the device
         results, ack.  The (B, 4) stats array is the round's ONLY
         device→host fetch."""
-        B = self.config.blocks_per_window
-        rnd = st["round"]
-        stats = st.pop("stats_host").numpy()  # (B, 4) int32
-        ok = stats[:, 0].astype(bool)
-        st.update(stage="decoded", ok=ok, iters=stats[:, 1],
-                  errs=stats[:, 2].astype(np.int64),
-                  mism=stats[:, 3].astype(np.int64))
-        if ok.any():
-            self._uncorrectable_streak = 0
-        if rnd == 0:
-            self._update_qber_prior(st)
-            if "gled_host" in st:
-                # Mesh mode: the decode-stage leakage comes from the
-                # program's psum'd global ledger (BASELINE config 5).
-                gled = st.pop("gled_host").numpy()
-                self.last_gled = gled
-                self.gled_by_window[w] = gled
-                idx = {f: i for i, f in enumerate(LEDGER_FIELDS)}
-                self.ledger.add(
-                    qber_test_bits=int(gled[idx["qber_test_bits"]]),
-                    syndrome_bits=int(gled[idx["syndrome_bits"]]),
-                    verify_hash_bits=int(gled[idx["verify_hash_bits"]]))
-        ack = VerifyAck(window_id=w, num_blocks=B,
-                        ok_mask=ok.astype(np.uint8), round=rnd)
-        if (~ok).any() and rnd < self.config.max_retries:
-            # Keep the window in flight awaiting Alice's retry disclosure.
+        with tracing.span("bob.resolve_decode", w):
+            B = self.config.blocks_per_window
+            rnd = st["round"]
+            stats = st.pop("stats_host").numpy()  # (B, 4) int32
+            ok = stats[:, 0].astype(bool)
+            st.update(stage="decoded", ok=ok, iters=stats[:, 1],
+                      errs=stats[:, 2].astype(np.int64),
+                      mism=stats[:, 3].astype(np.int64))
+            if ok.any():
+                self._uncorrectable_streak = 0
+            if rnd == 0:
+                self._update_qber_prior(st)
+                if "gled_host" in st:
+                    # Mesh mode: the decode-stage leakage comes from the
+                    # program's psum'd global ledger (BASELINE config 5).
+                    gled = st.pop("gled_host").numpy()
+                    self.last_gled = gled
+                    self.gled_by_window[w] = gled
+                    idx = {f: i for i, f in enumerate(LEDGER_FIELDS)}
+                    self.ledger.add(
+                        qber_test_bits=int(gled[idx["qber_test_bits"]]),
+                        syndrome_bits=int(gled[idx["syndrome_bits"]]),
+                        verify_hash_bits=int(gled[idx["verify_hash_bits"]]))
+            ack = VerifyAck(window_id=w, num_blocks=B,
+                            ok_mask=ok.astype(np.uint8), round=rnd)
+            if (~ok).any() and rnd < self.config.max_retries:
+                # Keep the window in flight awaiting Alice's retry disclosure.
+                self.link.send(ack)
+                return
+            self._inflight.pop(w, None)
+            self._finalize_window(w, st)
+            self._cache_ack(w, ack)
             self.link.send(ack)
-            return
-        self._inflight.pop(w, None)
-        self._finalize_window(w, st)
-        self._cache_ack(w, ack)
-        self.link.send(ack)
-        self._sync_auth_bits()
-        self._service_opens()
+            self._sync_auth_bits()
+            self._service_opens()
 
     def _cache_ack(self, w: int, ack: VerifyAck) -> None:
         """Cache evicted on the history horizon (NOT a small fixed window:
@@ -1381,18 +1426,20 @@ class BobSession(_Party):
             rows[:nf] = np.flatnonzero(failed)[:nf]
             valid = np.zeros(R, np.uint8)
             valid[:nf] = 1
-            out = prog.retry_small(
-                self.stream.arena, st["header"], st["rx_orig_dev"],
-                st["rx_pin_dev"], st["pinmask_dev"], st["hat_dev"],
-                stats_prev, rows, valid, positions, bits,
-                st["syndromes_dev"], st["exp_hashes_dev"], st["qmag"])
+            with tracing.span("program.retry_small"):
+                out = prog.retry_small(
+                    self.stream.arena, st["header"], st["rx_orig_dev"],
+                    st["rx_pin_dev"], st["pinmask_dev"], st["hat_dev"],
+                    stats_prev, rows, valid, positions, bits,
+                    st["syndromes_dev"], st["exp_hashes_dev"], st["qmag"])
         else:
-            out = prog.retry(
-                self.stream.arena, st["header"], st["rx_orig_dev"],
-                st["rx_pin_dev"], st["pinmask_dev"], st["hat_dev"],
-                stats_prev,
-                failed.astype(np.uint8), positions, bits,
-                st["syndromes_dev"], st["exp_hashes_dev"], st["qmag"])
+            with tracing.span("program.retry"):
+                out = prog.retry(
+                    self.stream.arena, st["header"], st["rx_orig_dev"],
+                    st["rx_pin_dev"], st["pinmask_dev"], st["hat_dev"],
+                    stats_prev,
+                    failed.astype(np.uint8), positions, bits,
+                    st["syndromes_dev"], st["exp_hashes_dev"], st["qmag"])
         hat, rx_pin, pinmask, stats_dev = out
         extra = st["extra_leak"]
         extra[failed] += msg.num_bits
@@ -1427,48 +1474,49 @@ class BobSession(_Party):
             self.qest.update_prior(errs, bits)
 
     def _finalize_window(self, w: int, st: dict) -> None:
-        r, k_pb = st["rate_index"], st["k_pb"]
-        step = self.ladder.steps[r]
-        B = self.config.blocks_per_window
-        ok = st["ok"]
-        s = st["short_bits"]
-        iters = st["iters"]
-        q = st["qber"]
-        extra = st["extra_leak"]
-        per_block_stream = self.payload_per_block(r)
-        if self.config.pa_mode == "stream":
-            final = self._stream_accumulate(st["hat_dev"], ok, r, k_pb, w,
-                                            s, extra)
-        else:
-            final = self._privacy_amplify(st["hat_dev"], ok, r, k_pb, w, s,
-                                          extra_leak=extra)
-        self.ledger.add(reconciled_bits=int(ok.sum()) * per_block_stream,
-                        discarded_bits=int((~ok).sum()) * per_block_stream,
-                        final_bits=final, blocks_ok=int(ok.sum()),
-                        blocks_failed=int((~ok).sum()))
-        self.metrics.append(WindowMetrics(
-            window_id=w, qber_est=float(q), rate_index=r,
-            rate_eff=1.0 - step.leaked_bits() / per_block_stream, blocks=B,
-            blocks_ok=int(ok.sum()), iters_mean=float(iters.mean()),
-            iters_max=int(iters.max()), payload_bits=per_block_stream * B,
-            leaked_syndrome=step.leaked_bits() * B,
-            leaked_qber=(k_pb + s) * B,
-            leaked_hash=self.config.verify_hash_bits * B,
-            final_bits=final,
-            blocks_retried=int((extra > 0).sum()),
-            extra_short_bits=s,
-            test_mismatches=int(st["mism"].sum())))
-        # Desync alarm: a run of 100%-failed windows is the signature of a
-        # stream-cursor divergence (every hash mismatches), not of channel
-        # noise — kill the session instead of burning payload forever.
-        if int(ok.sum()) == 0:
-            self._allfail_streak = getattr(self, "_allfail_streak", 0) + 1
-            if self._allfail_streak >= self.config.max_allfail_windows:
-                self.dead = True
-        else:
-            self._allfail_streak = 0
-        self._maybe_drain()
-        self._record_completed(w, st)
+        with tracing.span("bob.finalize", w):
+            r, k_pb = st["rate_index"], st["k_pb"]
+            step = self.ladder.steps[r]
+            B = self.config.blocks_per_window
+            ok = st["ok"]
+            s = st["short_bits"]
+            iters = st["iters"]
+            q = st["qber"]
+            extra = st["extra_leak"]
+            per_block_stream = self.payload_per_block(r)
+            if self.config.pa_mode == "stream":
+                final = self._stream_accumulate(st["hat_dev"], ok, r, k_pb, w,
+                                                s, extra)
+            else:
+                final = self._privacy_amplify(st["hat_dev"], ok, r, k_pb, w, s,
+                                              extra_leak=extra)
+            self.ledger.add(reconciled_bits=int(ok.sum()) * per_block_stream,
+                            discarded_bits=int((~ok).sum()) * per_block_stream,
+                            final_bits=final, blocks_ok=int(ok.sum()),
+                            blocks_failed=int((~ok).sum()))
+            self.metrics.append(WindowMetrics(
+                window_id=w, qber_est=float(q), rate_index=r,
+                rate_eff=1.0 - step.leaked_bits() / per_block_stream, blocks=B,
+                blocks_ok=int(ok.sum()), iters_mean=float(iters.mean()),
+                iters_max=int(iters.max()), payload_bits=per_block_stream * B,
+                leaked_syndrome=step.leaked_bits() * B,
+                leaked_qber=(k_pb + s) * B,
+                leaked_hash=self.config.verify_hash_bits * B,
+                final_bits=final,
+                blocks_retried=int((extra > 0).sum()),
+                extra_short_bits=s,
+                test_mismatches=int(st["mism"].sum())))
+            # Desync alarm: a run of 100%-failed windows is the signature of a
+            # stream-cursor divergence (every hash mismatches), not of channel
+            # noise — kill the session instead of burning payload forever.
+            if int(ok.sum()) == 0:
+                self._allfail_streak = getattr(self, "_allfail_streak", 0) + 1
+                if self._allfail_streak >= self.config.max_allfail_windows:
+                    self.dead = True
+            else:
+                self._allfail_streak = 0
+            self._maybe_drain()
+            self._record_completed(w, st)
 
 
 def run_loopback(config: PipelineConfig, alice_bits, bob_bits,

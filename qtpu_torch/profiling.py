@@ -30,11 +30,13 @@ where it does not (``decode_only``).
 ``chain`` drives the production pair over a direct link on the
 reference's threefry BSC stream (QBER 3%, seed 7; ``bench.device_bsc_stream``)
 with the reference's fixed-chunk feed and pump loop: WARMUP windows, then
-WINDOWS timed ones.  Host timers under the reference's names wrap the
-sessions' handlers, PA, the key drain, the affine stride and
-``prng.derive``; with ``--serial`` each rung's device programs also
-synchronize inside their timer, so a phase's number is its dispatch plus
-device time.  It prints ``window_ms`` and ``sifted_bits_per_s`` and the
+WINDOWS timed ones.  ``phases`` sums, by name, the program's own spans
+(``qtpu_torch.tracing``, recorded over the timed windows): under the
+reference's timer names the sessions' handlers, PA, the affine stride and
+``prng.derive``, and besides them the drain, the window-program calls and
+the decoder; with ``--serial`` each rung's device programs also run
+inside a ``dev.*`` timer that synchronizes, so that timer is the
+program's dispatch plus device time.  It prints ``window_ms`` and ``sifted_bits_per_s`` and the
 host probe of ``bench._host``, since the sessions are host-bound.  On a
 card a torch.profiler trace of WINDOWS further windows gives the kernel
 launches, kernel ms and busy ms per window (the union of the kernels'
@@ -45,8 +47,8 @@ window over the timed windows' ms per window (two runs: ``busy_share_of``
 says so), ``traced_busy_share`` the same over the traced windows' own.
 ``mix`` (timed) and ``trace["mix"]`` (traced) give each run's windows a
 rung, retried blocks and mean iterations, so a reader can see whether the
-two did the same device work.  The patched methods are restored on exit,
-also when the run fails.
+two did the same device work.  ``--serial``'s patch of
+``_Party.programs`` is undone on exit, also when the run fails.
 
 Both run on ``cuda`` unless ``--device cpu`` is given (there nothing is
 traced), and fail without a card.  Each prints one JSON line last, with
@@ -309,9 +311,10 @@ def programs(device=DEFAULT_DEVICE, reps: int = 20, cfg=None) -> dict:
 
 
 class Timers:
-    """Host timers by name: total seconds and calls.  ``wrap`` times a
-    function; with ``sync`` (a device) the timer also waits for the
-    device's queued work, so it holds dispatch plus device time."""
+    """``full_chain --serial``'s ``dev.*`` timers by name: total seconds
+    and calls.  ``wrap`` times a function; with ``sync`` (a device) the
+    timer also waits for the device's queued work, so it holds dispatch
+    plus device time."""
 
     def __init__(self):
         self.times = collections.defaultdict(float)
@@ -346,22 +349,6 @@ class Timers:
                                       key=lambda kv: -kv[1])}
 
 
-def _host_timers(pl, prng):
-    """(owner, attribute, timer name) of the reference's host timers."""
-    return (
-        (pl.AliceSession, "start_window", "alice.start_window"),
-        (pl.AliceSession, "_on_rate_select", "alice.on_rate_select"),
-        (pl.AliceSession, "_on_verify_ack", "alice.on_verify_ack"),
-        (pl.BobSession, "_service_opens", "bob.service_opens"),
-        (pl.BobSession, "_on_syndromes", "bob.on_syndromes"),
-        (pl.BobSession, "_resolve_decode", "bob.resolve_decode"),
-        (pl._Party, "_privacy_amplify", "pa.host_total"),
-        (pl._Party, "_drain_chunks", "drain_final_keys"),
-        (pl._Party, "_affine_for", "host.affine_for"),
-        (prng, "derive", "host.prng_derive"),
-    )
-
-
 # The program fields ``--serial`` times, and their timers' names.
 SERIAL_PROGRAMS = (("alice", "alice_program"), ("bob", "bob_program"),
                    ("pa", "pa"), ("pack", "pack"),
@@ -387,12 +374,12 @@ def _window_mix(metrics, lo: int, hi: int) -> dict:
 def full_chain(device=DEFAULT_DEVICE, windows: int = 6, warmup: int = 6,
                serial: bool = False, cfg=None,
                chunk_bits: int = 1 << 23) -> dict:
-    """The production pair's window cycle with host timers (and, with
-    ``serial``, synchronizing timers on each rung's programs); on a card
-    also a trace of ``windows`` further windows.  See the module
+    """The production pair's window cycle with the program's spans (and,
+    with ``serial``, synchronizing timers on each rung's programs); on a
+    card also a trace of ``windows`` further windows.  See the module
     docstring."""
     from qtpu_torch import pipeline as pl
-    from qtpu_torch import prng
+    from qtpu_torch import tracing
     from qtpu_torch.bench import (SESSION_SEED, _host, _host_now, _make_feed,
                                   _sync, device_bsc_stream)
     from qtpu_torch.link import make_direct_pair
@@ -421,9 +408,7 @@ def full_chain(device=DEFAULT_DEVICE, windows: int = 6, warmup: int = 6,
         return prog
 
     with contextlib.ExitStack() as patches:
-        for owner, attr, name in _host_timers(pl, prng):
-            patches.enter_context(mock.patch.object(
-                owner, attr, timers.wrap(name, getattr(owner, attr))))
+        patches.enter_context(tracing.recording())
         if serial:
             patches.enter_context(mock.patch.object(pl._Party, "programs",
                                                     serial_programs))
@@ -456,13 +441,16 @@ def full_chain(device=DEFAULT_DEVICE, windows: int = 6, warmup: int = 6,
         pump_until(warmup)
         _sync(dev)
         timers.clear()
+        tracing.clear()
         w_timed = bob.window_id
         t0 = time.perf_counter()
         pump_until(w_timed + windows)
         _sync(dev)
         total = time.perf_counter() - t0
         measured = bob.window_id - w_timed
-        phases = timers.table()
+        phases = dict(sorted(
+            {**tracing.table(tracing.recorded().spans),
+             **timers.table()}.items(), key=lambda kv: -kv[1]["total_ms"]))
         trace = None
         if traced:
             w0 = bob.window_id

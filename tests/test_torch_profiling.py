@@ -2,10 +2,10 @@
 config: each returns every key of its reference's output
 (``benchmarks/profile_programs.py``, ``benchmarks/profile_full_chain.py``),
 ``programs`` profiles the rung the reference's own Bob selects from the 3%
-prior, the chain settles the windows asked for, and the methods the chain
-wraps with timers are the originals again afterwards, also when the run
-fails.  Nothing is traced on the CPU: the device numbers are None.
-Times are not compared.
+prior, the chain settles the windows asked for, its phases come from the
+program's own spans, and the methods of the program the phases time are
+the originals afterwards, also when the run fails.  Nothing is traced on
+the CPU: the device numbers are None.  Times are not compared.
 """
 
 import collections
@@ -27,11 +27,23 @@ TIMER_NAMES = {"alice.start_window", "alice.on_rate_select",
                "host.prng_derive"}
 
 
+# The methods whose time the phases hold (the reference's timers wrapped
+# them), and the one ``--serial`` patches.
+TIMED = ((tpipe.AliceSession, "start_window"),
+         (tpipe.AliceSession, "_on_rate_select"),
+         (tpipe.AliceSession, "_on_verify_ack"),
+         (tpipe.BobSession, "_service_opens"),
+         (tpipe.BobSession, "_on_syndromes"),
+         (tpipe.BobSession, "_resolve_decode"),
+         (tpipe._Party, "_privacy_amplify"),
+         (tpipe._Party, "_drain_chunks"),
+         (tpipe._Party, "_affine_for"),
+         (prng, "derive"),
+         (tpipe._Party, "programs"))
+
+
 def _originals() -> dict:
-    out = {(owner, attr): getattr(owner, attr)
-           for owner, attr, _ in profiling._host_timers(tpipe, prng)}
-    out[(tpipe._Party, "programs")] = tpipe._Party.programs
-    return out
+    return {(owner, attr): getattr(owner, attr) for owner, attr in TIMED}
 
 
 def test_programs_small_config():
@@ -129,13 +141,12 @@ def test_cli_needs_cuda_unless_told_cpu(argv):
 def test_replay_small_config():
     """``replay_timers`` runs the bench's two-party session and its replay
     of Bob as the bench does (same windows, keys checked by the bench),
-    with timers only inside their timed regions, and restores every method
-    it wraps."""
+    with the program's spans counted only inside their timed regions, and
+    restores what it wraps."""
     from qtpu_torch import bench, replay_timers
-    before = {**_originals(), **{
-        (owner, attr): getattr(owner, attr)
-        for owner, attr, _ in replay_timers._loop_timers(tpipe)},
-        (bench, "_made"): bench._made}
+    from qtpu_torch.link import DirectLink
+    before = {**_originals(), (DirectLink, "recv"): DirectLink.recv,
+              (bench, "_made"): bench._made}
     out = replay_timers.replay("cpu", runs=((2, 2),),
                                cfg=tpipe.PipelineConfig(**SMALL),
                                chunk_bits=1 << 14)
@@ -147,13 +158,11 @@ def test_replay_small_config():
         assert 0 < len(row["settle_ms"]) <= 3
         assert TIMER_NAMES - {"alice.start_window", "alice.on_rate_select",
                               "alice.on_verify_ack"} <= row["timers"].keys()
-    assert {"top.alice.on_message", "top.bob.on_message",
-            "top.link.recv"} <= run["two_party"]["timers"].keys()
+    assert {"alice.on_message", "bob.on_message",
+            "link.recv"} <= run["two_party"]["timers"].keys()
     # Only the replay drains the final keys inside its timed region.
-    assert "top.drain_final" in run["replay"]["timers"]
-    assert "top.drain_final" not in run["two_party"]["timers"]
+    assert "drain" in run["replay"]["timers"]
+    assert "drain" not in run["two_party"]["timers"]
     assert {"cpu", "start", "end"} <= out["host"].keys()
-    assert {**_originals(), **{
-        (owner, attr): getattr(owner, attr)
-        for owner, attr, _ in replay_timers._loop_timers(tpipe)},
-        (bench, "_made"): bench._made} == before
+    assert {**_originals(), (DirectLink, "recv"): DirectLink.recv,
+            (bench, "_made"): bench._made} == before
