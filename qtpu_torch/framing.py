@@ -193,3 +193,21 @@ class KeyBlock:
 
 def _next_pow2(x: int) -> int:
     return 1 << (x - 1).bit_length()
+
+
+# ---------------------------------------------------------------------------
+# Port-only additions (everything above this line is a verbatim copy of
+# qtpu/framing.py; tests/test_torch_imports.py holds it to that).
+# ---------------------------------------------------------------------------
+
+# The same bits as the copy of unpack_bits above, which this replaces: one
+# np.unpackbits over bytes instead of a uint32 shift and mask a bit.
+def unpack_bits(words: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of pack_bits, truncated to n bits: the little-endian bytes
+    of only the words that hold the first n bits, unpacked LSB-first."""
+    words = np.asarray(words, dtype=np.uint32)
+    if n >= 0:
+        words = words[..., :(n + 31) // 32]
+    words = np.ascontiguousarray(words, dtype="<u4")
+    bits = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")
+    return bits[..., :n]
