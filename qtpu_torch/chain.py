@@ -20,6 +20,14 @@ device times fit the int32 contract — SURVEY.md framing notes):
                                ◄──────────  SiftIndex(matched alice events)
     splice → sifted bits → EC session       sifted bits → EC session
     ... EC protocol (qtpu.pipeline) continues on the same link ...
+
+Spans (``qtpu_torch.tracing``): each party's framing of a call is a
+``chain.push_stream``; Bob's batched sifting a ``sift.batch`` (children
+``sift.pad``, ``sift.upload``, ``sift.match``, ``sift.outputs``,
+``sift.fetch``; window: the batch's frame ids), a single frame a
+``sift.one`` (``sift.pfind`` inside it at the cold start); Alice's handling
+of a SiftIndex a ``chain.on_sift_index`` around its ``alice.splice``.
+Each party's EC intake (``push_sifted``) runs outside them.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from qtpu_torch import sift
+from qtpu_torch import sift, tracing
 from qtpu_torch.channel import EntangledPairSource, PairEvents
 from qtpu_torch.devices import DEFAULT_DEVICE, resolve_device
 from qtpu_torch.framing import TIME_UNITS_PER_NS
@@ -81,8 +89,9 @@ class AliceChain:
         continuous absolute-time event stream into device frames; every sift
         artifact is addressed by the real frame id (epoch id = frame >> 3)."""
         from qtpu_torch.framing import split_epochs
-        for fid, t, d in split_epochs(times_abs, detectors):
-            self._push_window(fid, t, d)
+        with tracing.span("chain.push_stream"):
+            for fid, t, d in split_epochs(times_abs, detectors):
+                self._push_window(fid, t, d)
 
     def push_events(self, times_i32: np.ndarray, detectors: np.ndarray) -> None:
         """One sift window of local detector events (already rebased) —
@@ -110,20 +119,26 @@ class AliceChain:
 
     def _dispatch(self, msg: Message) -> None:
         if isinstance(msg, SiftIndex):
-            q = self._window_bits[msg.window_id]
-            bits = q.popleft()
-            if not q:
-                del self._window_bits[msg.window_id]
-            if msg.count >= 0:
-                # Device-resident form: padded index row + valid prefix.
-                # Splice as a device gather and append the padded result
-                # with the prefix length — no index/mask d2h anywhere on
-                # the sift path.
-                self.ec.push_sifted(
-                    self._splice_device(bits, msg.indices), n=msg.count)
-            else:
-                self.ec.push_sifted(np.asarray(bits, np.uint8)[
-                    np.asarray(msg.indices, np.int64)])
+            # The splice under a chain span; the EC's intake after it, a
+            # top-level push_sifted as in every session.
+            with tracing.span("chain.on_sift_index", msg.window_id):
+                q = self._window_bits[msg.window_id]
+                bits = q.popleft()
+                if not q:
+                    del self._window_bits[msg.window_id]
+                if msg.count >= 0:
+                    # Device-resident form: padded index row + valid
+                    # prefix.  Splice as a device gather and append the
+                    # padded result with the prefix length — no index/mask
+                    # d2h anywhere on the sift path.
+                    with tracing.span("alice.splice"):
+                        sifted = self._splice_device(bits, msg.indices)
+                    n = msg.count
+                else:
+                    sifted = np.asarray(bits, np.uint8)[
+                        np.asarray(msg.indices, np.int64)]
+                    n = None
+            self.ec.push_sifted(sifted, n=n)
         else:
             self.ec.on_message(msg)
         if self.ec.can_start_window():
@@ -149,6 +164,10 @@ class AliceChain:
 class BobChain:
     """Receiver side: acquires offset, coincidence-matches, emits SiftIndex."""
 
+    # Frames of our own events held for a peer that announces none (~4.3 s
+    # of stream at the 2^29-unit frame).
+    HELD_FRAMES = 64
+
     def __init__(self, config: ChainConfig, session_seed: int, link,
                  device=DEFAULT_DEVICE):
         self.config = config
@@ -158,6 +177,9 @@ class BobChain:
                              device=device)
         self._events: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._pending_timing: dict[int, TimingBasis] = {}
+        # The newest frame the peer has announced: she announces in frame
+        # order, so frames below it that we still hold she never will.
+        self._announced = -1
         self._sift_window = 0
         self.offset: Optional[int] = None
         # Per-frame sifting diagnostics (the reference getrate role,
@@ -173,9 +195,10 @@ class BobChain:
         """Epoch-true streaming (the chopper2 role): frames by real ids."""
         from qtpu_torch.framing import split_epochs
         top = None
-        for fid, t, d in split_epochs(times_abs, detectors):
-            self._push_window(fid, t, d)
-            top = fid
+        with tracing.span("chain.push_stream"):
+            for fid, t, d in split_epochs(times_abs, detectors):
+                self._push_window(fid, t, d)
+                top = fid
         if top is None:
             return
         # Sift ready frames the stream has MOVED PAST (no more chunks can
@@ -197,8 +220,14 @@ class BobChain:
             for _ in self._pending_timing.pop(w):
                 self.link.send(SiftIndex(window_id=w,
                                          indices=np.zeros(0, np.int32)))
-        # And frames we detected but the peer never announces: bounded GC.
-        for w in [w for w in self._events if w < top - 8]:
+        # And frames we detected but the peer never announces: those below
+        # her newest announcement, and any HELD_FRAMES behind the stream (a
+        # bound for a silent peer).  Frames she is still to announce stay
+        # however far the stream runs ahead of her announcements: dropping
+        # them would answer her chunks empty and lose their key on both
+        # sides.
+        for w in [w for w in self._events
+                  if w < self._announced or w < top - self.HELD_FRAMES]:
             self._events.pop(w)
 
     def push_events(self, times_i32: np.ndarray, detectors: np.ndarray) -> None:
@@ -243,6 +272,7 @@ class BobChain:
 
     def _on_timing(self, msg: TimingBasis) -> None:
         import collections
+        self._announced = max(self._announced, msg.window_id)
         q = self._events.get(msg.window_id)
         if not q:
             self._pending_timing.setdefault(
@@ -271,47 +301,73 @@ class BobChain:
 
     def _sift_one(self, msg: TimingBasis, times_b: np.ndarray,
                   det_b: np.ndarray) -> None:
-        basis_b = (det_b >> 1) & 1
-        bits_b = det_b & 1
-        # Pad to the sticky power-of-two capacities (shared with the
-        # batched path): padding at DEVICE_PAD never matches.
-        na = len(msg.times)
-        nb = len(times_b)
-        self._na_cap = max(getattr(self, "_na_cap", 256), self._pow2(na))
-        self._nb_cap = max(getattr(self, "_nb_cap", 256), self._pow2(nb))
-        ta_p = np.full(self._na_cap, sift.DEVICE_PAD, np.int32)
-        ta_p[:na] = msg.times
-        ba_p = np.zeros(self._na_cap, np.uint8)
-        ba_p[:na] = msg.basis
-        tb_p = np.full(self._nb_cap, sift.DEVICE_PAD, np.int32)
-        tb_p[:nb] = times_b
-        bb_p = np.zeros(self._nb_cap, np.uint8)
-        bb_p[:nb] = basis_b
-        xb_p = np.zeros(self._nb_cap, np.uint8)
-        xb_p[:nb] = bits_b
-        ta = self._to_dev(ta_p)
-        tb = self._to_dev(tb_p)
-        if self.offset is None:
-            span = min(int(self.config.window_s * 1e9 * TIME_UNITS_PER_NS),
-                       sift.MAX_SPAN)
-            self.offset = int(sift.pfind(ta, tb, span,
-                                         num_bins=self.config.pfind_bins))
-        r = sift.coincidence_match(
-            ta, self._to_dev(ba_p), tb, self._to_dev(bb_p),
-            self._to_dev(xb_p),
-            torch.tensor(self.offset, dtype=torch.int32, device=self.device),
-            self.config.coincidence_window)
-        # Drift servo: track the residual for the next window.
-        residual = float(r.residual)
-        self.offset += int(self.config.servo_gain * residual)
-        matched = r.matched.cpu().numpy()
-        sifted_mask = matched & r.basis_ok.cpu().numpy()
-        idx = np.flatnonzero(sifted_mask).astype(np.int32)
-        bob_bits = r.bob_bits.cpu().numpy()[idx]
+        with tracing.span("sift.one", msg.window_id):
+            basis_b = (det_b >> 1) & 1
+            bits_b = det_b & 1
+            # Pad to the sticky power-of-two capacities (shared with the
+            # batched path): padding at DEVICE_PAD never matches.
+            na = len(msg.times)
+            nb = len(times_b)
+            self._na_cap = max(getattr(self, "_na_cap", 256), self._pow2(na))
+            self._nb_cap = max(getattr(self, "_nb_cap", 256), self._pow2(nb))
+            ta_p = np.full(self._na_cap, sift.DEVICE_PAD, np.int32)
+            ta_p[:na] = msg.times
+            ba_p = np.zeros(self._na_cap, np.uint8)
+            ba_p[:na] = msg.basis
+            tb_p = np.full(self._nb_cap, sift.DEVICE_PAD, np.int32)
+            tb_p[:nb] = times_b
+            bb_p = np.zeros(self._nb_cap, np.uint8)
+            bb_p[:nb] = basis_b
+            xb_p = np.zeros(self._nb_cap, np.uint8)
+            xb_p[:nb] = bits_b
+            ta = self._to_dev(ta_p)
+            tb = self._to_dev(tb_p)
+            if self.offset is None:
+                span = min(int(self.config.window_s * 1e9
+                               * TIME_UNITS_PER_NS), sift.MAX_SPAN)
+                with tracing.span("sift.pfind"):
+                    self.offset = int(sift.pfind(
+                        *self._pfind_times(ta, tb, msg.times, times_b, span),
+                        span, num_bins=self.config.pfind_bins))
+            r = sift.coincidence_match(
+                ta, self._to_dev(ba_p), tb, self._to_dev(bb_p),
+                self._to_dev(xb_p),
+                torch.tensor(self.offset, dtype=torch.int32,
+                             device=self.device),
+                self.config.coincidence_window)
+            # Drift servo: track the residual for the next window.
+            residual = float(r.residual)
+            self.offset += int(self.config.servo_gain * residual)
+            matched = r.matched.cpu().numpy()
+            sifted_mask = matched & r.basis_ok.cpu().numpy()
+            idx = np.flatnonzero(sifted_mask).astype(np.int32)
+            bob_bits = r.bob_bits.cpu().numpy()[idx]
+        # The EC's intake outside the sift span (a top-level push_sifted,
+        # as in every session), then the index, in the order the protocol
+        # has always sent them.
         self.ec.push_sifted(bob_bits.astype(np.uint8))
         self.link.send(SiftIndex(window_id=msg.window_id, indices=idx))
         self._record_stats(msg, times_b, int(matched.sum()), int(idx.size),
                            residual)
+
+    @staticmethod
+    def _pfind_times(ta, tb, times_a: np.ndarray, times_b: np.ndarray,
+                     span: int):
+        """pfind's inputs: it bins [0, span) of the frame, so a stream
+        whose first chunk starts past span / 2 and runs past span (a
+        stream that starts late inside a frame) has its events moved back
+        by its first event; the offset between the parties is the same,
+        and the padding stays at DEVICE_PAD, where pfind excludes it.  A
+        chunk inside [0, span), or one that starts in its first half (a
+        stream that starts at a frame's start), is passed as it is."""
+        if not (len(times_a) and len(times_b)):
+            return ta, tb
+        base = min(int(times_a[0]), int(times_b[0]))
+        if base < span // 2 or max(int(times_a[-1]),
+                                   int(times_b[-1])) < span:
+            return ta, tb
+        return (torch.where(ta < sift.DEVICE_PAD, ta - base, ta),
+                torch.where(tb < sift.DEVICE_PAD, tb - base, tb))
 
     @staticmethod
     def _pow2(n: int, floor: int = 256) -> int:
@@ -325,51 +381,61 @@ class BobChain:
         the device between frames), one host fetch for the whole batch.
         Frames pad to the batch's sticky power-of-two event capacities."""
         F = len(frames)
-        self._na_cap = max(getattr(self, "_na_cap", 256),
-                           self._pow2(max(len(m.times) for m, _, _ in frames)))
-        self._nb_cap = max(getattr(self, "_nb_cap", 256),
-                           self._pow2(max(len(t) for _, t, _ in frames)))
-        na_cap, nb_cap = self._na_cap, self._nb_cap
-        ta = np.full((F, na_cap), sift.DEVICE_PAD, np.int32)
-        ba = np.zeros((F, na_cap), np.uint8)
-        tb = np.full((F, nb_cap), sift.DEVICE_PAD, np.int32)
-        bb = np.zeros((F, nb_cap), np.uint8)
-        xb = np.zeros((F, nb_cap), np.uint8)
-        for i, (msg, times_b, det_b) in enumerate(frames):
-            na, nb = len(msg.times), len(times_b)
-            ta[i, :na] = msg.times
-            ba[i, :na] = msg.basis
-            tb[i, :nb] = times_b
-            bb[i, :nb] = (det_b >> 1) & 1
-            xb[i, :nb] = det_b & 1
-        match = sift.make_frame_matcher(F, self.config.coincidence_window,
-                                        self.config.servo_gain)
-        r = match(*map(self._to_dev, (ta, ba, tb, bb, xb)), self.offset)
-        # Device-resident epilogue: compaction and the per-frame type-4
-        # index rows stay on the device; only the per-frame counts and
-        # servo residuals cross to the host.  The compacted Bob bits append
-        # to the EC stream as a padded device buffer with a valid-prefix
-        # length.
-        idx_dev, counts_dev, bits_flat = sift.sift_outputs(r.sift_mask,
-                                                           r.bob_bits)
-        counts = counts_dev.cpu().numpy()
-        mcounts = r.matched_counts.cpu().numpy()
-        residuals = r.residuals.cpu().numpy()
-        # Per-frame servo trajectory for the stats (same f32-multiply +
-        # truncate arithmetic as the device servo).
-        offset = np.int32(self.offset)
-        self.offset = int(r.final_offset)
-        total = int(counts.sum())
-        for i, (msg, times_b, _d) in enumerate(frames):
-            self.link.send(SiftIndex(window_id=msg.window_id,
-                                     indices=idx_dev[i],
-                                     count=int(counts[i])))
-            offset = np.int32(offset + np.int32(
-                np.float32(self.config.servo_gain)
-                * np.float32(residuals[i])))
-            self._record_stats(msg, times_b, int(mcounts[i]),
-                               int(counts[i]), float(residuals[i]),
-                               offset=int(offset))
+        with tracing.span("sift.batch",
+                          tuple(m.window_id for m, _, _ in frames)):
+            with tracing.span("sift.pad"):
+                self._na_cap = max(getattr(self, "_na_cap", 256), self._pow2(
+                    max(len(m.times) for m, _, _ in frames)))
+                self._nb_cap = max(getattr(self, "_nb_cap", 256), self._pow2(
+                    max(len(t) for _, t, _ in frames)))
+                na_cap, nb_cap = self._na_cap, self._nb_cap
+                ta = np.full((F, na_cap), sift.DEVICE_PAD, np.int32)
+                ba = np.zeros((F, na_cap), np.uint8)
+                tb = np.full((F, nb_cap), sift.DEVICE_PAD, np.int32)
+                bb = np.zeros((F, nb_cap), np.uint8)
+                xb = np.zeros((F, nb_cap), np.uint8)
+                for i, (msg, times_b, det_b) in enumerate(frames):
+                    na, nb = len(msg.times), len(times_b)
+                    ta[i, :na] = msg.times
+                    ba[i, :na] = msg.basis
+                    tb[i, :nb] = times_b
+                    bb[i, :nb] = (det_b >> 1) & 1
+                    xb[i, :nb] = det_b & 1
+            with tracing.span("sift.upload"):
+                inputs = [self._to_dev(a) for a in (ta, ba, tb, bb, xb)]
+            with tracing.span("sift.match"):
+                match = sift.make_frame_matcher(
+                    F, self.config.coincidence_window,
+                    self.config.servo_gain)
+                r = match(*inputs, self.offset)
+            # Device-resident epilogue: compaction and the per-frame type-4
+            # index rows stay on the device; only the per-frame counts and
+            # servo residuals cross to the host.  The compacted Bob bits
+            # append to the EC stream as a padded device buffer with a
+            # valid-prefix length.
+            with tracing.span("sift.outputs"):
+                idx_dev, counts_dev, bits_flat = sift.sift_outputs(
+                    r.sift_mask, r.bob_bits)
+            with tracing.span("sift.fetch"):
+                counts = counts_dev.cpu().numpy()
+                mcounts = r.matched_counts.cpu().numpy()
+                residuals = r.residuals.cpu().numpy()
+                final_offset = int(r.final_offset)
+            # Per-frame servo trajectory for the stats (same f32-multiply +
+            # truncate arithmetic as the device servo).
+            offset = np.int32(self.offset)
+            self.offset = final_offset
+            total = int(counts.sum())
+            for i, (msg, times_b, _d) in enumerate(frames):
+                self.link.send(SiftIndex(window_id=msg.window_id,
+                                         indices=idx_dev[i],
+                                         count=int(counts[i])))
+                offset = np.int32(offset + np.int32(
+                    np.float32(self.config.servo_gain)
+                    * np.float32(residuals[i])))
+                self._record_stats(msg, times_b, int(mcounts[i]),
+                                   int(counts[i]), float(residuals[i]),
+                                   offset=int(offset))
         if total:
             self.ec.push_sifted(bits_flat, n=total)
 
