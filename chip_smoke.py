@@ -42,8 +42,8 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    alone at every rung of the production ladder (the PA seed, B = 128
    rows of P + l_max - 1 bits; the verify seed, P + 63 bits; the puncture
    pad; the 128 test offsets in [0, P)) and the tables Alice's and Bob's
-   programs make there (and Alice's and retry_small's with a shortening
-   fill), at retry_small's 8 index rows, at 4 shards' row0 offsets (their
+   programs make there (and Alice's and the retry's with a shortening
+   fill), at the retry's 8 index rows, at 4 shards' row0 offsets (their
    rows == the unsharded draw's), at the shortening fill's draw (B = 128,
    one z = 2,048 column); the hash on one 2^23-bit chunk of the bench's
    BSC stream (fold_in, split, bits, uniform); at the production rung each
@@ -57,8 +57,8 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    entry points of ``qtpu_torch/csrc/pin_llr.cu`` (Bob's pins, mismatch
    count and LLR; the retries' LLR) == their plain PyTorch versions bit
    for bit (LLRs by their float32 bit patterns) at every production rung
-   (B = 128, the full-B retry), at 4 shards' rows (b = 32, == the
-   unsharded call's rows), at retry_small's 1 and 8 rows, at every rung
+   (B = 128, a retry of all B rows), at 4 shards' rows (b = 32, == the
+   unsharded call's rows), at the retry's 1 and 8 rows, at every rung
    of the n = 4096 mixed ladder (B = 1024) and with every input one byte
    off alignment (pin_llr at B = 128, llr at 8 rows: two aligned loads a
    run), and at z = 24 and 10 (no ladder's: the byte bodies; the encoder
@@ -79,11 +79,13 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    count and each retry's merge) == their plain PyTorch versions bit for
    bit: hash and the first decode's tail at every production rung (B =
    128), timed at the first, the 3%-prior and the last rung; a shard's
-   32 rows (== the unsharded call's rows, timed); retry_small's 1 and 8
-   rows (timed) and retry_program's merge at B = 128 with 11 failed rows
-   (timed); the hash and the first decode's tail at 1 and 8 rows
+   32 rows (== the unsharded call's rows, timed); the retry's rows merge
+   at B = 128 of 11 rows and of all 128 rows (timed) and of 1 row; the
+   hash and the first decode's tail at 1 and 8 rows
    (timed); every input one byte off alignment (hash, tail at B = 128
-   and at 8 rows); z = 24 and 10 in each mode, aligned and one byte off;
+   and the rows merge of 11 and of all B rows); z = 24 and 10 in each
+   mode (the rows merge of 11 and of all B rows), aligned and one byte
+   off;
    every rung of the n = 4096 mixed ladder at B = 1024 (z = 16); Vh = 1,
    31 and 33; each timed shape's launch plan (``window_verify.plan``:
    cluster size, CTAs a row, a CTA's groups of 16 words, threads, shared
@@ -92,9 +94,9 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
    a call), plain time and bound (bytes at 3.35 TB/s, or half a funnel
    shift and a three-input AND-XOR a row word and hash bit on the INT32
    pipe); the hash's library call is the float32 cuBLAS chain it replaces,
-   timed on the same inputs.  A profiler trace of alice, bob,
-   retry_program and retry_small at the 3%-prior rung shows each
-   launching the verify kernel and no GEMM.  The traces run after phase
+   timed on the same inputs.  A profiler trace of alice, bob and the
+   retry (11 rows) at the 3%-prior rung shows each launching the verify
+   kernel and no GEMM.  The traces run after phase
    19: a torch.profiler session before phase 13's one-call trace left
    that trace without its kernels;
 6. session: production_config(), Alice and Bob on this card over a direct
@@ -198,7 +200,7 @@ Phases (each prints one flushed line; any failure ends the run non-zero):
     qtpu_torch.profiling programs 10`` (every program
     launches kernels, device ms <= 1.05 x call ms, decode_only launches
     the layered kernel once a call, pa_seed_gen one threefry kernel a call,
-    alice, bob and retry_small <= 40 launches a call) and ``chain 6``
+    alice, bob and retry <= 40 launches a call) and ``chain 6``
     (>= 6 timed windows, a busy share in (0, 1], fewer launches a window
     than PR 9's tree's 648.3, printed beside it, no int64 elementwise
     kernel and no ``roll`` launched once a window or more among the top
@@ -384,8 +386,8 @@ def cluster_sweep(label, code, llr, syn, max_iters, reps, alg="layered",
             p = cuda_bp.KernelPlan(C, *sh)
 
             def run():
-                return cuda_bp._launch(name, code, tab, llr, syn, max_iters,
-                                       0.8125, p)
+                return cuda_bp._decode_at(name, code, tab, llr, syn,
+                                          max_iters, 0.8125, p)
             got = run()
             assert torch.equal(got.bits, ref.bits) and torch.equal(
                 got.iterations, ref.iterations) and torch.equal(
@@ -705,7 +707,7 @@ def threefry_phase(dev, cfg, ladder, probe) -> dict:
         d = offsets_draw(f"test offsets {name} B={B}", range(B), P, reps)
         if r == rung:
             out["offsets"] = d
-        # The programs' tables, and Alice's and retry_small's with a
+        # The programs' tables, and Alice's and the retry's with a
         # shortening fill of one z column (no rung of this ladder shortens,
         # so its programs draw none).
         verify = tr.SeedRows(wkey, (TAG_VERIFY,), range(1), P + Vh - 1)
@@ -720,7 +722,7 @@ def threefry_phase(dev, cfg, ladder, probe) -> dict:
         if r == rung:
             out["bob_table"] = d
         table_draw(f"alice table with a fill {name}", alice + [fill])
-        table_draw(f"retry_small table with a fill {name}",
+        table_draw(f"retry table with a fill {name}",
                    [tr.SeedRows(wkey, (TAG_SHORTFILL,), idx, z), verify])
         shapes.append(f"r{r}: PA {B}x{P + l_max - 1}, verify "
                       f"{P + Vh - 1}, pad {B}x{pad}, offsets {B} in [0, {P})")
@@ -729,12 +731,12 @@ def threefry_phase(dev, cfg, ladder, probe) -> dict:
     P = probe.payload_per_block(rung)
     l_max = probe.programs(rung).l_max
     z = ladder.steps[rung].code.z
-    # retry_small's failed rows, an index tensor on the card.
-    rows_draw("retry_small 8 index rows, shortening fill", wkey,
+    # The retry's failed rows, an index tensor on the card.
+    rows_draw("retry 8 index rows, shortening fill", wkey,
               (TAG_SHORTFILL,), idx, z, reps=20)
-    rows_draw("retry_small 8 index rows, PA length", pakey, (), idx,
+    rows_draw("retry 8 index rows, PA length", pakey, (), idx,
               P + l_max - 1)
-    offsets_draw("retry_small 8 index rows, test offsets", idx, P)
+    offsets_draw("retry 8 index rows, test offsets", idx, P)
     # 4 shards' rows from row0 = g * bl: the unsharded draw's rows.
     bl = B // MESH_SHARDS
     full_pad = tr.seed_rows_at(pkey, (), range(B), 2 * z, dev)
@@ -811,8 +813,8 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
     and both pin/LLR entry points (``qtpu_torch/csrc/pin_llr.cu``) == their
     plain versions on the card, bit for bit, at the main path's shapes:
     every production rung at B = 128 (``probe``: a BobSession of ``cfg``),
-    4 shards' rows (b = 32, == the unsharded call's rows), retry_small's 1
-    and 8 rows and the full-B retry, and every rung of the n = 4096 mixed
+    4 shards' rows (b = 32, == the unsharded call's rows), the retry's 1
+    and 8 rows and all B rows, and every rung of the n = 4096 mixed
     ladder at B = 1024 (``ms_probe``).  Timed at the rung a 3% prior
     selects, and with every input one byte off alignment.  The encoder
     is also held and timed at the first and last rung, a shard's rows, 300
@@ -825,6 +827,7 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
     (Draw, plan)}}."""
     import numpy as np
     import torch
+    from qtpu_torch import _build
     from qtpu_torch import window_assembly as wa
     from qtpu_torch.ldpc import encode as enc
     from qtpu_torch.ldpc.codes import make_regular_code
@@ -884,7 +887,7 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
                          2 * B * P), reps)
         rx_pin, pin = wa.pin_llr(**pins)[:2]
         pin = pin | (torch.rand(pin.shape, generator=g, device=dev) < 0.05)
-        hold_kernel("llr", f"{label} full retry B={B}",
+        hold_kernel("llr", f"{label} retry of all rows B={B}",
                     lambda: wa.llr(rx_pin, pin, parts[1], pins["qmag"],
                                    layout),
                     lambda: wa.llr_plain(rx_pin, pin, parts[1],
@@ -909,13 +912,15 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
     P = layout.widths[0] * code.z
     handed = []
 
-    def spy(name, dev_, *args, real=enc._launch):
-        handed.append([p for p in args[:3] if p is not None])
-        return real(name, dev_, *args)
+    def spy(library, name, argtypes, counts, dev_, *args,
+            real=_build.launch):
+        if library == enc.LIBRARY:
+            handed.append([p for p in args[:3] if p is not None])
+        return real(library, name, argtypes, counts, dev_, *args)
     header = make_header(3, prog.s_max, np.array([1, 2]), np.array([3, 4]),
                          test_bits_pb=prog.k_pb,
                          affine=probe._affine_for(0, P))
-    with mock.patch.object(enc, "_launch", spy):
+    with mock.patch.object(_build, "launch", spy):
         prog.alice(bits(B * P + 64), header)
     assert len(handed) == 1 and handed[0], handed
     assert all(p % 16 == 0 for p in handed[0]), \
@@ -954,7 +959,7 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
                            enc.make_parts_encoder(code, layout)(*parts)[rows])
     say(f"window kernels: {MESH_SHARDS} shards' rows (b = {bl}) == plain "
         f"and == the unsharded call's rows")
-    # retry_small: 1 and 8 failed rows (index-selected, as the program does).
+    # The retry: 1 and 8 failed rows (index-selected, as the program does).
     idx = torch.randperm(B, generator=g, device=dev)[:8].sort().values
     for nrows in (1, 8):
         sel = idx[:nrows]
@@ -963,7 +968,7 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
                      pins["qmag"], layout)
         n_bytes = nrows * (2 * layout.widths[0] * code.z + 4 * code.n
                            + layout.widths[1] * code.z) + 8 * code.nb
-        d = hold_kernel("llr", f"retry_small {nrows} rows",
+        d = hold_kernel("llr", f"retry {nrows} rows",
                         lambda: wa.llr(*rows_args),
                         lambda: wa.llr_plain(*rows_args),
                         window_bound(n_bytes, 0), 20 if nrows == 8 else 0)
@@ -982,7 +987,7 @@ def window_kernels_phase(dev, cfg, probe, ms_probe) -> dict:
     off_args = (one_byte_off(rx_pin[sel]), one_byte_off(pin[sel]),
                 None if parts[1] is None else one_byte_off(parts[1][sel]),
                 pins["qmag"], layout)
-    hold_kernel("llr", "retry_small 8 rows one byte off alignment",
+    hold_kernel("llr", "retry 8 rows one byte off alignment",
                 lambda: wa.llr(*off_args), lambda: wa.llr_plain(*off_args))
     # z not a multiple of 16 (no ladder of the repo has one): the kernels'
     # byte bodies, with every input aligned and one byte off; the encoder
@@ -1063,14 +1068,12 @@ def tail_bound(layout, b, B, vh, mode, merged=None):
     """``verify_bound`` of a tail: each merged row reads its payload
     columns of the bits, rx_pin, the pin mask, rx_orig, its expected hash,
     flag, iterations and mismatch or old stats, and writes hat and stats;
-    a retry's other rows read and write hat and stats (retry_program also
-    reads their iterations); the seed, the column table and the row map
-    once."""
+    a retry's other rows read and write hat and stats; the seed, the column
+    table and the row map once."""
     P = layout.widths[0] * layout.z
     merged = b if merged is None else merged
     row = 5 * P + vh + 1 + 4 + 16 + (4 if mode == "first" else 16)
-    kept = 0 if mode == "first" else (B - merged) * (2 * P + 32 + (
-        4 if mode == "retry" else 0))
+    kept = 0 if mode == "first" else (B - merged) * (2 * P + 32)
     nbytes = (merged * row + kept + (P + vh - 1) + 8 * layout.nb
               + (0 if mode == "first" else 4 * B))
     return verify_bound(nbytes, merged * -(-P // 32) * vh)
@@ -1153,9 +1156,9 @@ def trace_ms(fn, reps, kernel="verify_kernel"):
 
 
 def program_kernels(dev, probe, rung):
-    """The CUDA kernels alice, bob, retry_program (11 failed rows) and
-    retry_small (8 rows) launch at ``rung`` of ``probe``'s ladder, from a
-    torch.profiler trace of one window's calls: {program: kernel names}."""
+    """The CUDA kernels alice, bob and the retry (11 failed rows) launch at
+    ``rung`` of ``probe``'s ladder, from a torch.profiler trace of one
+    window's calls: {program: kernel names}."""
     import numpy as np
     import torch
     from qtpu_torch.profiling import device_trace
@@ -1178,17 +1181,12 @@ def program_kernels(dev, probe, rung):
     positions = np.sort(rng.choice(P, prog.retry_bits, replace=False)
                         ).astype(np.int32)
     bits = prog.retry_gather(payload, positions)
-    failed = np.zeros(B, np.uint8)
-    failed[rng.choice(B, 11, replace=False)] = 1
-    rows = np.flatnonzero(failed)[:8].astype(np.int32)
+    rows = np.sort(rng.choice(B, 11, replace=False))
     common = (arena, header, rx_orig, rx_pin, pinmask, hat, stats)
     calls = {
         "alice_program": alice, "bob_program": bob,
-        "retry_program": lambda: prog.retry(*common, failed, positions, bits,
-                                            syn, hashes, mag),
-        "retry_small": lambda: prog.retry_small(
-            *common, rows, np.ones(8, np.uint8), positions, bits, syn,
-            hashes, mag)}
+        "retry": lambda: prog.retry(*common, rows, positions, bits, syn,
+                                    hashes, mag)}
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
@@ -1208,9 +1206,10 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
     their plain versions on the card, bit for bit, at the main path's
     shapes (``probe``: a BobSession of ``cfg``; ``ms_probe``: of the mixed
     n = 4096 ladder), each tail mode; timed at the first, the 3%-prior
-    and the last rung, a shard's rows and each retry's merge.  Returns
-    {"hash", "tail", "tail_off", "tail_shard", "retry", "retry_small":
-    Draw, "hash_chain": (call ms, device ms), "hash_tail_max_err": int}."""
+    and the last rung, a shard's rows and the retry's rows merge of 11 and
+    of all B rows.  Returns {"hash", "tail", "tail_off", "tail_shard",
+    "retry", "retry_all": Draw, "hash_chain": (call ms, device ms),
+    "hash_tail_max_err": int}."""
     import numpy as np
     import torch
     from qtpu_torch import window_verify as wv
@@ -1250,29 +1249,26 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
         old = torch.randint(0, 60, (B, 4), generator=g, device=dev,
                             dtype=torch.int32)
         pick = torch.randperm(B, generator=g, device=dev).cpu().numpy()
-        if mode == "retry":
-            failed = np.zeros(B, bool)
-            failed[pick[:11]] = True
-            return dict(hat=bits(B, P), stats=old, failed=failed)
         return dict(hat=bits(B, P), stats=old, rows=pick[:b])
 
     def off(d):
         return {k: one_byte_off(v) if isinstance(v, torch.Tensor) else v
                 for k, v in d.items()}
 
-    def hold_tail(label, layout, mode, b, B, moved=False, reps=0):
+    def hold_tail(label, layout, mode, b, B, moved=False, reps=0, key=None):
+        """The tail of b decoded rows of a window of B == plain (``mode``
+        "first" or "rows"); with ``reps`` its times, a retry's kept under
+        ``key`` for the traced phase."""
         P = layout.widths[0] * layout.z
         args, m = inputs(layout, b, B), merge(mode, b, B, P)
         if moved:
             args, m = off(args), off(m)
-        merged = 11 if mode == "retry" else None
         if reps:
-            label += " | " + verify_plan_text(dev, B, merged or b, P, vh,
-                                              layout)
+            label += " | " + verify_plan_text(dev, B, b, P, vh, layout)
         d = hold_kernel("verify_tail", f"{mode} {label}",
                         lambda: wv.tail(**args, **m),
                         lambda: wv.tail_plain(**args, **m),
-                        tail_bound(layout, b, B, vh, mode, merged),
+                        tail_bound(layout, b, B, vh, mode),
                         reps if mode == "first" else 0)
         if reps and mode != "first":
             # The retries upload their row map a call (no graph capture):
@@ -1283,10 +1279,10 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
             torch.cuda.synchronize()
             plain_ms = 1e3 * (time.perf_counter() - t)
             ms = time_cuda(lambda: wv.tail(**args, **m), reps)
-            out["untraced"][mode] = (f"{mode} {label}",
-                                     lambda: wv.tail(**args, **m), reps,
-                                     Draw(0, ms, 0.0, plain_ms, *tail_bound(
-                                         layout, b, B, vh, mode, merged)))
+            out["untraced"][key] = (f"{mode} {label}",
+                                    lambda: wv.tail(**args, **m), reps,
+                                    Draw(0, ms, 0.0, plain_ms, *tail_bound(
+                                        layout, b, B, vh, mode)))
         return d, args
 
     def hold_hash(label, x, seed, reps=0):
@@ -1351,14 +1347,10 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
         args = inputs(r_layout, b, B)
         hat_o = torch.empty((B, P), dtype=torch.uint8, device=dev)
         st_o = torch.empty((B, 4), dtype=torch.int32, device=dev)
-        order, merged = None, B
+        order, merged, code = None, B, wv.FIRST
         if mode != "first":
-            code = wv.RETRY if mode == "retry" else wv.RETRY_SMALL
-            order, merged = wv._row_order(wv._source_rows(
-                code, m.get("failed"), m.get("rows"), b, B))
-            order = torch.from_numpy(order).to(dev)
-        code = {"first": wv.FIRST, "retry": wv.RETRY,
-                "retry_small": wv.RETRY_SMALL}[mode]
+            order, merged = wv._row_order(wv._source_rows(m["rows"], b, B))
+            order, code = torch.from_numpy(order).to(dev), wv.ROWS
 
         def run(p):
             wv._launch_tail(args["bits"], args["rx_pin"], args["pin"],
@@ -1388,17 +1380,16 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
                            (f"first shard b={bl}", "first", bl),
                            ("first b=1", "first", 1),
                            ("first b=8", "first", 8),
-                           (f"retry B={B}, 11 failed", "retry", B),
-                           (f"retry_small 8 rows of B={B}", "retry_small",
-                            8)):
-        Bw = b if mode != "retry_small" else B
+                           (f"rows 11 of B={B}", "rows", 11),
+                           (f"rows {B} of B={B}", "rows", B)):
+        Bw = b if mode == "first" else B
         sweep_tail(label, mode, b, Bw, merge(mode, b, Bw, P))
-    # The retries' merges, timed; retry_small at 1 row too.
-    hold_tail(f"rung {rung} B={B}, 11 failed", r_layout, "retry", B, B,
-              reps=20)
-    hold_tail(f"rung {rung} 8 rows of B={B}", r_layout, "retry_small", 8, B,
-              reps=20)
-    hold_tail(f"rung {rung} 1 row of B={B}", r_layout, "retry_small", 1, B)
+    # The retry's rows merge, timed at 11 and all B rows; 1 row too.
+    hold_tail(f"rung {rung} 11 rows of B={B}", r_layout, "rows", 11, B,
+              reps=20, key="retry")
+    hold_tail(f"rung {rung} {B} rows of B={B}", r_layout, "rows", B, B,
+              reps=20, key="retry_all")
+    hold_tail(f"rung {rung} 1 row of B={B}", r_layout, "rows", 1, B)
     # A decode (and a hash) of 1 and of 8 rows: too few rows to fill the
     # card a row a CTA.
     for bb in (1, 8):
@@ -1411,10 +1402,10 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
     out["tail_off"] = hold_tail(f"rung {rung} B={B}, every input one byte "
                                 f"off alignment", r_layout, "first", B, B,
                                 moved=True, reps=20)[0]
-    hold_tail(f"rung {rung} 8 rows, every input one byte off",
-              r_layout, "retry_small", 8, B, moved=True)
-    hold_tail(f"rung {rung} B={B}, every input one byte off", r_layout,
-              "retry", B, B, moved=True)
+    hold_tail(f"rung {rung} 11 rows of B={B}, every input one byte off",
+              r_layout, "rows", 11, B, moved=True)
+    hold_tail(f"rung {rung} {B} rows of B={B}, every input one byte off",
+              r_layout, "rows", B, B, moved=True)
     hold_hash(f"rung {rung} B={B}, x and seed one byte off",
               one_byte_off(r_args["rx_orig"]), one_byte_off(r_args["seed"]),
               20)
@@ -1428,7 +1419,7 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
                 ColumnLayout(24, 10, list(range(2, 24)), [0], [1])):
         for moved in (False, True):
             label = f"z={lay.z}" + (", one byte off" if moved else "")
-            for mode, b in (("first", B), ("retry", B), ("retry_small", 8)):
+            for mode, b in (("first", B), ("rows", 11), ("rows", B)):
                 hold_tail(f"{label} b={b}", lay, mode, b, B, moved=moved)
             x = bits(B, lay.widths[0] * lay.z)
             seed = bits(lay.widths[0] * lay.z + vh - 1)
@@ -1453,17 +1444,17 @@ def verify_phase(dev, cfg, probe, ms_probe) -> dict:
 def verify_traced_phase(dev, cfg, probe, verified) -> None:
     """Phase 5d's traced part, run after phase 19 (a profiler session
     before phase 13's one-call trace leaves that trace without its
-    kernels): the retries' device time from a torch.profiler trace (into
-    ``verified["retry"]`` and ``["retry_small"]``), and a trace of alice,
-    bob, retry_program and retry_small at the 3%-prior rung launching the
-    verify kernel once each and no GEMM."""
-    for mode, (label, fn, reps, d) in verified.pop("untraced").items():
+    kernels): the retry's device time from a torch.profiler trace (into
+    ``verified["retry"]``, 11 rows, and ``["retry_all"]``, all B rows),
+    and a trace of alice, bob and the retry at the 3%-prior rung launching
+    the verify kernel once each and no GEMM."""
+    for key, (label, fn, reps, d) in verified.pop("untraced").items():
         dev_ms = trace_ms(fn, reps)
         say(f"verify_tail {label}: == plain; kernel_ms={d.ms:.4f} "
             f"device_ms={dev_ms:.4f} (trace) plain_ms={d.plain_ms:.2f} "
             f"bound_ms={d.bound_ms:.5f} ({d.bound_by}) share_of_bound "
             f"{d.bound_ms / dev_ms:.4f} (device) library_ms=null")
-        verified[mode] = d._replace(device_ms=dev_ms)
+        verified[key] = d._replace(device_ms=dev_ms)
     rung = prior_rung(cfg, dev)
     for name, kernels in program_kernels(dev, probe, rung).items():
         gemm = [k for k in kernels if re.search(GEMM_KERNEL, k)]
@@ -2396,10 +2387,10 @@ INT64_THREEFRY_OP = r"Bitwise(Xor|Or)Functor<long>"
 GEMM_KERNEL = r"(?i)gemm|gemv|splitk|cutlass|xmma"
 ROLL_OP = r"roll_cuda_kernel"
 # Launches a call of the programs whose eager op chains have kernels now
-# (PR 9's tree: alice 352, bob 61, retry_small 44), and a two-party
-# production window's launches on that tree.
+# (before the window kernels: alice 352, bob 61, the retry of 8 rows 44),
+# and a two-party production window's launches on that tree.
 PROGRAM_LAUNCH_LIMITS = {"alice_program": 40, "bob_program": 40,
-                         "retry_small": 40}
+                         "retry": 40}
 PARENT_LAUNCHES_PER_WINDOW = 648.3
 # Threefry launches a production window outside its retry rounds: one
 # draw table a program call that draws (Alice's, Bob's, each party's PA).
@@ -2672,22 +2663,21 @@ def main() -> int:
                  (wv, "hash_plain"), (wv, "tail_plain")]
     from qtpu_torch.pipeline import BobSession
     # The encoder's launches whose parts lie off 16-byte alignment (the
-    # threads' body): none on the main path.
+    # threads' body): none on the main path.  The verify tail's launches by
+    # mode (the kernel's 17th argument).
     off_parts = collections.Counter()
-
-    def launch_spy(name, dev_, *args, real=enc._launch):
-        off_parts[name] += any(p is not None and p % 16 for p in args[:3])
-        return real(name, dev_, *args)
-    # The verify tail's launches by mode (the kernel's 17th argument).
     tail_modes = collections.Counter()
 
-    def tail_spy(name, dev_, *args, real=wv._launch):
-        if name == "verify_tail":
-            tail_modes[("first", "retry", "retry_small")[args[16]]] += 1
-        return real(name, dev_, *args)
+    def launch_spy(library, name, argtypes, counts, dev_, *args,
+                   real=_build.launch):
+        if library == enc.LIBRARY:
+            off_parts[name] += any(p is not None and p % 16
+                                   for p in args[:3])
+        elif name == "verify_tail":
+            tail_modes[("first", "rows")[args[16]]] += 1
+        return real(library, name, argtypes, counts, dev_, *args)
     with contextlib.ExitStack() as patches:
-        patches.enter_context(mock.patch.object(enc, "_launch", launch_spy))
-        patches.enter_context(mock.patch.object(wv, "_launch", tail_spy))
+        patches.enter_context(mock.patch.object(_build, "launch", launch_spy))
         for owner, name in plain_fns:
             patches.enter_context(mock.patch.object(
                 owner, name, counted(name, getattr(owner, name))))
@@ -2725,11 +2715,10 @@ def main() -> int:
     say(f"session qc_encode: all {prod['qc_encode']} launches had 16-byte "
         f"aligned parts (the bulk body)")
     # Each Bob decode ends in one tail launch: the first decode's a window,
-    # a retry mode's a retry round; Alice hashes once a window.
+    # the rows merge a retry round; Alice hashes once a window.
     assert tail_modes["first"] >= len(mets) and sum(tail_modes.values()) \
         == prod["verify_tail"], (tail_modes, prod, len(mets))
-    assert 0 < tail_modes["retry"] + tail_modes["retry_small"] \
-        <= made["_on_retry"], (tail_modes, made)
+    assert 0 < tail_modes["rows"] <= made["_on_retry"], (tail_modes, made)
     assert prod["verify_hash"] >= len(mets), prod
     say(f"session verify: {prod['verify_hash']} hash and "
         f"{prod['verify_tail']} tail launches over {len(mets)} windows "
@@ -3080,11 +3069,11 @@ def main() -> int:
                  "selects, B = 128",
         **{f"{f}_{k}": float(f"{getattr(verified[k], f):.4g}")
            for k in ("hash", "tail_off", "tail_shard", "retry",
-                     "retry_small", "tail_b1", "tail_b8", "hash_b1",
+                     "retry_all", "tail_b1", "tail_b8", "hash_b1",
                      "hash_b8")
            for f in ("ms", "device_ms", "plain_ms", "bound_ms")},
         **{f"bound_by_{k}": verified[k].bound_by
-           for k in ("hash", "retry", "retry_small", "tail_b1", "hash_b1")},
+           for k in ("hash", "retry", "retry_all", "tail_b1", "hash_b1")},
         "library_ms_hash": round(verified["hash_chain"][1], 4),
         "plan_sweeps_device_ms": {k: {p: round(ms, 5) for p, ms in v.items()}
                                   for k, v in verified["sweeps"].items()},

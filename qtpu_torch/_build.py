@@ -18,7 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "build_log", "entry", "call"]
+__all__ = ["NVCC_FLAGS", "build", "load", "build_log", "entry", "call",
+           "launch", "on_card"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -150,3 +151,21 @@ def call(library: str, name: str, argtypes: tuple, dev, *args) -> None:
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed (code {rc})")
+
+
+def launch(library: str, name: str, argtypes: tuple, counts: dict, dev,
+           *args) -> None:
+    """``call`` entry point ``qtpu_<name>`` of ``library`` (typed by
+    ``argtypes``) on the current stream of ``dev``, then add one to
+    ``counts[name]``, the caller's launch counter."""
+    call(library, name, argtypes, dev, *args)
+    counts[name] += 1
+
+
+def on_card(dev, what: str) -> bool:
+    """True for a CUDA device, False for the CPU; raises ValueError naming
+    ``what`` for another."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on the CPU or a CUDA device, not "
+                         f"{dev}")
+    return dev.type == "cuda"

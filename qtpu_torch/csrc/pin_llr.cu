@@ -6,7 +6,7 @@
 // mismatch count) and :455-471 (the LLR assembly of _decode_core: payload
 // LLRs from the pinned bits, shortening-fill columns at +-BIG_LLR,
 // punctured columns at 0, one static column permutation), inside
-// bob_program (:483), retry_program (:537) and retry_small (:565).
+// bob_program (:483) and its two retry programs (:537, :565).
 //
 // Two entry points:
 //  * qtpu_pin_llr (Bob's first decode): in gather form, with no scatter.

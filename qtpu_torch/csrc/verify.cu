@@ -7,27 +7,23 @@
 // matmul there), :473-481 (the tail of _decode_core: the payload columns
 // extracted from the decoded codeword, pinned positions set to rx_pin, the
 // hash, ok = all(hash == expected) & converged, the error count) and the
-// merges of retry_program (:553-563) and retry_small (:598-618), inside
-// alice_program (:407), bob_program (:483), retry_program (:537) and
-// retry_small (:565).
+// merge of its compact retry (:598-618), inside alice_program (:407),
+// bob_program (:483) and that retry (:565).
 //
 // Two entry points:
 //  * qtpu_verify_hash (Alice's program): out (b, Vh) 0/1 bytes.
 //  * qtpu_verify_tail (Bob's decodes): for each merged output row d, from
 //    the decoded row i it merges (i = d for the first decode; for a retry
-//    the host's row order gives d, and i = d (retry_program) or the row's
-//    place in the decode (retry_small)):
+//    the host's row order gives d, and i is the row's place in the
+//    decode):
 //      hat[d] = pin ? rx_pin : the payload columns of bits[i] (base-column
 //      order, through the layout's sources table);
 //      ok = all(hash(hat[d]) == expected[d]) & converged[i];
 //      errs = sum(hat[d] ^ rx_orig[d]).
 //    stats[d] = [ok, iterations[i], errs, mism[d]] for the first decode;
-//    for retry_program (mode 1) [old ok | ok, max(old iters, iterations),
-//    errs, old mism], and where the row was not re-decoded hat_old[d] and
-//    [old ok != 0, max(old iters, iterations[d]), old errs, old mism] (its
-//    iterations max is taken on every row, as the reference's); for
-//    retry_small (mode 2) [ok, max(old iters, iterations[i]), errs, old
-//    mism], and where no row was re-decoded hat_old[d] and stats_old[d].
+//    for a retry (mode 1, the rows merge) [ok, max(old iters,
+//    iterations[i]), errs, old mism], and where no row was re-decoded
+//    hat_old[d] and stats_old[d].
 //
 // The hash reads each byte's lowest bit; hat is a copy of the bytes and the
 // error count sums the XOR of the bytes, as the plain version does.  Inputs
@@ -101,7 +97,7 @@ constexpr int kMaxSmem = 232448 - 2048;   // dynamic bytes (static below)
 constexpr int kMaxDevices = 64;
 constexpr int kWarpWords = 40;            // a warp's 16 row, 20 seed words
 
-enum Mode { kFirst = 0, kRetry = 1, kRetrySmall = 2 };
+enum Mode { kFirst = 0, kRows = 1 };
 
 struct Tail {             // qtpu_verify_tail's inputs and outputs
   const uint8_t* bits;        // (b, nb z) decoded codewords, decoded rows
@@ -115,9 +111,9 @@ struct Tail {             // qtpu_verify_tail's inputs and outputs
   const uint8_t* converged;   // (b,) bool bytes, decoded rows
   const int32_t* iterations;  // (b,) decoded rows
   const int32_t* mism;        // (rows,) the first decode's
-  const int32_t* order;       // (rows,) the retries': merged rows, then kept
-  const uint8_t* hat_old;     // (rows, P) the retries'
-  const int32_t* stats_old;   // (rows, 4) the retries'
+  const int32_t* order;       // (rows,) a retry's: merged rows, then kept
+  const uint8_t* hat_old;     // (rows, P) a retry's
+  const int32_t* stats_old;   // (rows, 4) a retry's
   int mode;
   uint8_t* hat;               // (rows, P)
   int32_t* stats;             // (rows, 4)
@@ -143,26 +139,17 @@ __device__ void write_stats(const Tail& t, long long d, int i, bool ok,
     return;
   }
   const int32_t* old = t.stats_old + 4 * d;
-  s[0] = t.mode == kRetry ? (int)((old[0] != 0) | ok) : (int)ok;
+  s[0] = ok;
   s[1] = max(old[1], iters);
   s[2] = errs;
   s[3] = old[3];
 }
 
-// A retry's output row d that was not re-decoded: its old stats
-// (retry_program also takes the iterations maximum and normalises ok).
+// A retry's output row d that was not re-decoded: its old stats.
 __device__ void keep_stats(const Tail& t, long long d) {
   const int32_t* old = t.stats_old + 4 * d;
   int32_t* s = t.stats + 4 * d;
-  if (t.mode == kRetry) {
-    s[0] = old[0] != 0;
-    s[1] = max(old[1], t.iterations[d]);
-  } else {
-    s[0] = old[0];
-    s[1] = old[1];
-  }
-  s[2] = old[2];
-  s[3] = old[3];
+  for (int j = 0; j < 4; ++j) s[j] = old[j];
 }
 
 // The 16 bytes at p, at any alignment: one 16-byte load where p is
@@ -531,11 +518,8 @@ verify_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ seed,
     __syncthreads();
   }
   long long d = k;                              // the output row
-  int i = k;                                    // the decoded row
-  if (kTail && t.mode != kFirst) {
-    d = t.order[k];
-    if (t.mode == kRetry) i = (int)d;
-  }
+  const int i = k;                              // the decoded row
+  if (kTail && t.mode == kRows) d = t.order[k];
   // The warp's groups g0 + warp, + nw, ... of the CTA's [g0, g1).
   const uint32_t g0 = min(G, rank * q), g1 = min(G, g0 + q);
   const uint32_t step = (uint32_t)nw;
@@ -750,9 +734,9 @@ extern "C" int qtpu_verify_hash(const uint8_t* x, const uint8_t* seed, int b,
 // sources int32 (2, nb) (0 for a payload column); rx_pin, pin (b, P);
 // rx_orig (rows, P); seed (P + vh - 1); expected (rows, vh); converged (b,)
 // bool; iterations (b,) int32; mode 0 (first decode, rows = merged = b,
-// mism (b,) int32), 1 (retry_program) or 2 (retry_small), the retries with
-// order (rows,) int32 (the merged output rows, decoded row k's at place k
-// for retry_small, then the kept rows; each row once), hat_old (rows, P)
+// mism (b,) int32) or 1 (a retry's rows merge, with order (rows,) int32:
+// the merged output rows, decoded row k's at place k, then the kept rows;
+// each row once), hat_old (rows, P)
 // and stats_old (rows, 4) int32.  Writes hat (rows, P) and stats (rows,
 // 4), at the plan's numbers (as qtpu_verify_hash's, and kept_ctas CTAs for
 // the kept rows).  -1: rows <= 0, P outside 1..2^17 or not a whole number
@@ -771,7 +755,7 @@ extern "C" int qtpu_verify_tail(
       || P / (uint32_t)z > (uint32_t)nb)
     return -1;
   if (mode == kFirst ? mism == nullptr || merged != rows
-      : (mode != kRetry && mode != kRetrySmall) || order == nullptr
+      : mode != kRows || order == nullptr
         || hat_old == nullptr || stats_old == nullptr)
     return -1;
   const Plan lp = {rows, merged, cluster, groups};

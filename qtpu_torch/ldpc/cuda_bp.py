@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qtpu_torch import tracing
+from qtpu_torch import _build, tracing
 from qtpu_torch.ldpc.codes import QCCode
 from qtpu_torch.ldpc.decode import (BatchDecodeResult, make_flooding_decoder,
                                     make_layered_decoder)
@@ -63,7 +63,7 @@ launch_batches = {name: collections.Counter() for name in KERNELS.values()}
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Both entry points: llr, syndrome, table, bits, converged, iterations; B,
 # mb, nb, z, E, max_dc, max_iters; alpha; cluster, threads, smem; stream.
-_ARGTYPES = [_PTR] * 6 + [_INT] * 7 + [_FLOAT] + [_INT] * 3 + [_PTR]
+_ARGTYPES = (_PTR,) * 6 + (_INT,) * 7 + (_FLOAT,) + (_INT,) * 3 + (_PTR,)
 
 
 def code_tables(code: QCCode) -> np.ndarray:
@@ -117,19 +117,8 @@ class KernelPlan(NamedTuple):
 
 
 @functools.cache
-def _kernel(name: str):
-    """The built kernel's C entry point, with its argument types."""
-    from qtpu_torch import _build
-    fn = getattr(_build.load(name), f"qtpu_{name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES
-    return fn
-
-
-@functools.cache
 def _lib(name: str):
     """Kernel ``name``'s library with its planning functions typed."""
-    from qtpu_torch import _build
     lib = _build.load(name)
     getattr(lib, f"qtpu_{name}_smem").restype = ctypes.c_longlong
     getattr(lib, f"qtpu_{name}_smem").argtypes = [_INT] * 5
@@ -251,27 +240,20 @@ def _outputs(B: int, n: int, dev):
             torch.empty((B,), dtype=torch.int32, device=dev))
 
 
-def _run(name: str, dev, *args) -> None:
-    """Call kernel ``name``'s C entry point with ``args`` and the current
-    stream of ``dev``; raises when the launch fails."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel(name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed (code {rc})")
-
-
-def _launch(name: str, code: QCCode, table: torch.Tensor,
-            llr: torch.Tensor, syndrome: torch.Tensor, max_iters: int,
-            alpha: float, plan: KernelPlan) -> BatchDecodeResult:
-    """One launch of kernel ``name`` on checked CUDA inputs at ``plan``'s
-    shape.  Counts nothing: ``make_cuda_decoder``'s decoder does."""
+def _decode_at(name: str, code: QCCode, table: torch.Tensor,
+               llr: torch.Tensor, syndrome: torch.Tensor, max_iters: int,
+               alpha: float, plan: KernelPlan) -> BatchDecodeResult:
+    """One launch of kernel ``name`` (its library's entry point of the
+    same name) on checked CUDA inputs at ``plan``'s shape.  Counts
+    nothing: ``make_cuda_decoder``'s decoder does."""
     B, dev = llr.shape[0], llr.device
     bits, converged, iterations = _outputs(B, code.n, dev)
-    _run(name, dev, llr.data_ptr(), syndrome.data_ptr(), table.data_ptr(),
-         bits.data_ptr(), converged.data_ptr(), iterations.data_ptr(), B,
-         code.mb, code.nb, code.z, code.num_edges, _max_dc(code),
-         int(max_iters), float(alpha), plan.cluster, plan.threads, plan.smem)
+    _build.call(name, name, _ARGTYPES, dev, llr.data_ptr(),
+                syndrome.data_ptr(), table.data_ptr(), bits.data_ptr(),
+                converged.data_ptr(), iterations.data_ptr(), B, code.mb,
+                code.nb, code.z, code.num_edges, _max_dc(code),
+                int(max_iters), float(alpha), plan.cluster, plan.threads,
+                plan.smem)
     return BatchDecodeResult(bits, converged, iterations)
 
 
@@ -325,8 +307,8 @@ def make_cuda_decoder(code: QCCode, max_iters: int, alpha: float = 0.8125,
         with tracing.span("decode.plan"):
             shape = plan(code, dev, B)
         with tracing.span("decode.launch"):
-            res = _launch(name, code, tables[dev], llr, syndrome, max_iters,
-                          alpha, shape)
+            res = _decode_at(name, code, tables[dev], llr, syndrome,
+                             max_iters, alpha, shape)
         launches[name] += 1
         launch_batches[name][B] += 1
         return res

@@ -26,6 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
+from qtpu_torch import _build
 from qtpu_torch.ldpc.codes import QCCode, _group_edges
 
 __all__ = ["make_batch_encoder", "make_parts_encoder", "encode_syndrome_batch",
@@ -47,9 +48,10 @@ _INT, _PTR = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = {
     # parts 0-2, their widths in columns, table, b, mb, nb, z, E, out;
     # stream
-    "qc_encode": [_PTR] * 3 + [_INT] * 3 + [_PTR] + [_INT] * 5 + [_PTR, _PTR],
+    "qc_encode": (_PTR,) * 3 + (_INT,) * 3 + (_PTR,) + (_INT,) * 5
+    + (_PTR, _PTR),
     # parts 0-2, their widths, b, mb, nb, z, E, int32[8] out
-    "qc_encode_plan": [_PTR] * 3 + [_INT] * 8 + [_PTR],
+    "qc_encode_plan": (_PTR,) * 3 + (_INT,) * 8 + (_PTR,),
 }
 # The kernel's bodies (csrc/qc_encode.cu): every part of a block staged by
 # TMA bulk copies, some of them, or none (the CTA's threads stage them).
@@ -174,26 +176,8 @@ def encode_parts_plain(code: QCCode, layout: ColumnLayout,
 # ---------------------------------------------------------------------------
 # The kernel's wrapper.
 
-def _entry(name: str):
-    """Entry point ``qtpu_<name>`` of the built library, typed."""
-    from qtpu_torch import _build
-    return _build.entry(LIBRARY, name, tuple(_ARGTYPES[name]))
-
-
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call entry point ``name`` with ``args`` on ``dev``'s current stream
-    (raises when it fails) and count the launch."""
-    from qtpu_torch import _build
-    _build.call(LIBRARY, name, tuple(_ARGTYPES[name]), dev, *args)
-    launches[name] += 1
-
-
 def _on_card(dev: torch.device) -> bool:
-    """True for a CUDA device, False for the CPU; raises for another."""
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"the encoder runs on the CPU or a CUDA device, "
-                         f"not {dev}")
-    return dev.type == "cuda"
+    return _build.on_card(dev, "the encoder")
 
 
 def code_table(code: QCCode, layout: ColumnLayout) -> np.ndarray:
@@ -231,8 +215,10 @@ def launch_plan(code: QCCode, layout: ColumnLayout, parts) -> dict:
     given = layout.check_parts(parts, b, dev)
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(dev):
-        rc = _entry("qc_encode_plan")(*_part_args(layout, given), b, code.mb,
-                                      code.nb, code.z, code.num_edges, out)
+        rc = _build.entry(LIBRARY, "qc_encode_plan",
+                          _ARGTYPES["qc_encode_plan"])(
+            *_part_args(layout, given), b, code.mb, code.nb, code.z,
+            code.num_edges, out)
     if rc != 0:
         raise RuntimeError(f"qc_encode_plan failed (code {rc})")
     keys = ("grid", "threads", "smem", "stages", "group", "groups")
@@ -263,14 +249,15 @@ def make_parts_encoder(code: QCCode, layout: ColumnLayout):
         if code.z > MAX_Z:
             raise ValueError(f"z = {code.z} > {MAX_Z}: the kernel stages "
                              f"columns in shared memory")
-        _entry("qc_encode")
+        _build.entry(LIBRARY, "qc_encode", _ARGTYPES["qc_encode"])
         out = torch.empty((b, code.m), dtype=torch.uint8, device=dev)
         if dev not in tables:
             tables[dev] = torch.from_numpy(table_np).to(dev)
         if b:
-            _launch("qc_encode", dev, *_part_args(layout, given),
-                    tables[dev].data_ptr(), b, code.mb, code.nb, code.z,
-                    code.num_edges, out.data_ptr())
+            _build.launch(LIBRARY, "qc_encode", _ARGTYPES["qc_encode"],
+                          launches, dev, *_part_args(layout, given),
+                          tables[dev].data_ptr(), b, code.mb, code.nb,
+                          code.z, code.num_edges, out.data_ptr())
         return out
 
     return encode

@@ -1422,31 +1422,13 @@ class BobSession(_Party):
             [st["ok"].astype(np.int32), st["iters"].astype(np.int32),
              st["errs"].astype(np.int32), st["mism"].astype(np.int32)],
             axis=1), self.device)
-        R = 8 if B >= 8 else B
-        nf = int(failed.sum())
-        if nf <= R:
-            # Compact path: decode only the failed rows.  Pads carry the
-            # OUT-OF-RANGE index B and are masked out by ``valid`` (a pad
-            # with a real index would merge conflicting values).
-            rows = np.full(R, B, np.int32)
-            rows[:nf] = np.flatnonzero(failed)[:nf]
-            valid = np.zeros(R, np.uint8)
-            valid[:nf] = 1
-            with tracing.span("program.retry_small"):
-                out = prog.retry_small(
-                    self.stream.arena, st["header"], st["rx_orig_dev"],
-                    st["rx_pin_dev"], st["pinmask_dev"], st["hat_dev"],
-                    stats_prev, rows, valid, positions, bits,
-                    st["syndromes_dev"], st["exp_hashes_dev"], st["qmag"])
-        else:
-            with tracing.span("program.retry"):
-                out = prog.retry(
-                    self.stream.arena, st["header"], st["rx_orig_dev"],
-                    st["rx_pin_dev"], st["pinmask_dev"], st["hat_dev"],
-                    stats_prev,
-                    failed.astype(np.uint8), positions, bits,
-                    st["syndromes_dev"], st["exp_hashes_dev"], st["qmag"])
-        hat, rx_pin, pinmask, stats_dev = out
+        # Re-decode only the failed rows, however many.
+        with tracing.span("program.retry"):
+            hat, rx_pin, pinmask, stats_dev = prog.retry(
+                self.stream.arena, st["header"], st["rx_orig_dev"],
+                st["rx_pin_dev"], st["pinmask_dev"], st["hat_dev"],
+                stats_prev, np.flatnonzero(failed), positions, bits,
+                st["syndromes_dev"], st["exp_hashes_dev"], st["qmag"])
         extra = st["extra_leak"]
         extra[failed] += msg.num_bits
         self.ledger.add(syndrome_bits=msg.num_bits * int(failed.sum()))

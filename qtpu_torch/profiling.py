@@ -69,13 +69,14 @@ from unittest import mock
 import numpy as np
 import torch
 
+from qtpu_torch import tracing
 from qtpu_torch.devices import (DEFAULT_DEVICE, device_name, entry_device,
                                 resolve_device)
 from qtpu_torch.ldpc import cuda_bp
 
 __all__ = ["programs", "full_chain", "device_trace", "Timers", "main"]
 
-PROGRAMS = ("alice_program", "bob_program", "pa", "pack", "retry_small",
+PROGRAMS = ("alice_program", "bob_program", "pa", "pack", "retry",
             "decode_only", "verify_hash", "verify_hash_cublas",
             "pa_seed_gen")
 QBER = 0.03
@@ -169,6 +170,10 @@ def device_trace(dev: torch.device):
             # its kernels): the latter is on the kernels' own clock.
             (out.regions if on_card else host_regions)[
                 e.name[len(REGION):]] = span
+        elif e.name.startswith(tracing.PREFIX):
+            # A program span's range; on the card's timeline it lies over
+            # the span's kernels and is not one of them.
+            continue
         elif on_card and e.name.startswith(("Memcpy", "Memset")):
             out.copies.append(span)
         elif on_card:
@@ -264,12 +269,10 @@ def programs(device=DEFAULT_DEVICE, reps: int = 20, cfg=None) -> dict:
     hat, rx_orig, rx_pin, pinmask, stats = prog_b.bob(*bob_args)
     pakey = alice._pa_key(0, 0)
     fk = prog_a.pa(payload, pakey)
-    R = 8 if B >= 8 else B
     positions = alice._retry_positions(0, 0, P, prog_a.retry_bits)
     retry_args = (arena_b, header_b, rx_orig, rx_pin, pinmask, hat, stats,
-                  np.arange(R, dtype=np.int32), np.ones(R, np.uint8),
-                  positions, prog_a.retry_gather(payload, positions), syn,
-                  hashes, mag)
+                  np.arange(min(8, B)), positions,
+                  prog_a.retry_gather(payload, positions), syn, hashes, mag)
 
     step = alice.ladder.steps[r]
     dec = make_batch_decoder(step.code, cfg.max_iters, cfg.alg)
@@ -289,7 +292,7 @@ def programs(device=DEFAULT_DEVICE, reps: int = 20, cfg=None) -> dict:
         "bob_program": lambda: prog_b.bob(*bob_args),
         "pa": lambda: prog_a.pa(payload, pakey),
         "pack": lambda: prog_a.pack(fk),
-        "retry_small": lambda: prog_b.retry_small(*retry_args),
+        "retry": lambda: prog_b.retry(*retry_args),
         "decode_only": lambda: dec(llr, syn_full),
         "verify_hash": lambda: window_verify.hash(x, t),
         "verify_hash_cublas": lambda: window_verify.hash_plain(x, t),
@@ -351,8 +354,7 @@ class Timers:
 
 # The program fields ``--serial`` times, and their timers' names.
 SERIAL_PROGRAMS = (("alice", "alice_program"), ("bob", "bob_program"),
-                   ("pa", "pa"), ("pack", "pack"),
-                   ("retry_small", "retry_small"), ("retry", "retry"))
+                   ("pa", "pa"), ("pack", "pack"), ("retry", "retry"))
 
 
 BUSY_SHARE_OF = ("the traced windows' busy ms a window over the timed "

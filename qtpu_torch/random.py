@@ -43,6 +43,8 @@ from typing import NamedTuple
 
 import torch
 
+from qtpu_torch import _build
+
 __all__ = ["key_from_data", "fold_in", "split", "bits32", "uniform",
            "SeedRows", "Randint", "draws", "seed_rows_at", "randint_at",
            "fold_in_plain", "split_plain", "bits32_plain", "draws_plain",
@@ -64,9 +66,9 @@ _U32, _INT, _LL, _PTR = (ctypes.c_uint32, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_void_p)
 _ARGTYPES = {
     # the table (host array of _DrawEntry), its length; stream
-    "threefry_draws": [_PTR, _INT, _PTR],
+    "threefry_draws": (_PTR, _INT, _PTR),
     # keys, K, counts, count0, W, pair, out; stream
-    "threefry_hash": [_PTR, _LL, _PTR, _U32, _LL, _INT, _PTR, _PTR],
+    "threefry_hash": (_PTR, _LL, _PTR, _U32, _LL, _INT, _PTR, _PTR),
 }
 
 
@@ -229,11 +231,7 @@ def draws_plain(table, device) -> list:
 # The kernel's wrapper.
 
 def _on_card(device: torch.device) -> bool:
-    """True for a CUDA device, False for the CPU; raises for another."""
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"threefry runs on the CPU or a CUDA device, not "
-                         f"{device}")
-    return device.type == "cuda"
+    return _build.on_card(device, "threefry")
 
 
 def _check(t: torch.Tensor, what: str, ndim=None) -> None:
@@ -250,20 +248,6 @@ def _check(t: torch.Tensor, what: str, ndim=None) -> None:
                          f"tensor")
 
 
-def _entry(name: str):
-    """Entry point ``qtpu_<name>`` of the built library, typed."""
-    from qtpu_torch import _build
-    return _build.entry(LIBRARY, name, tuple(_ARGTYPES[name]))
-
-
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call entry point ``name`` with ``args`` on ``dev``'s current stream
-    (raises when it fails) and count the launch."""
-    from qtpu_torch import _build
-    _build.call(LIBRARY, name, tuple(_ARGTYPES[name]), dev, *args)
-    launches[name] += 1
-
-
 def _hash(key: torch.Tensor, width: int, pair: bool, counts=None,
           count0: int = 0) -> torch.Tensor:
     """threefry(key, (0, c_j)) for j < width, c_j = counts[j] or count0 + j:
@@ -273,14 +257,15 @@ def _hash(key: torch.Tensor, width: int, pair: bool, counts=None,
     _check(key, "key")
     if counts is not None and counts.device != key.device:
         raise ValueError(f"data on {counts.device}, key on {key.device}")
-    _entry("threefry_hash")
+    _build.entry(LIBRARY, "threefry_hash", _ARGTYPES["threefry_hash"])
     shape = key.shape[:-1] + ((width, 2) if pair else (width,))
     out = torch.empty(shape, dtype=torch.int64, device=key.device)
     K = key.numel() // 2
     if K and width:
-        _launch("threefry_hash", key.device, key.data_ptr(), K,
-                None if counts is None else counts.data_ptr(),
-                count0 & _M32, width, int(pair), out.data_ptr())
+        _build.launch(LIBRARY, "threefry_hash", _ARGTYPES["threefry_hash"],
+                      launches, key.device, key.data_ptr(), K,
+                      None if counts is None else counts.data_ptr(),
+                      count0 & _M32, width, int(pair), out.data_ptr())
     return out
 
 
@@ -362,7 +347,7 @@ def draws(table, device) -> list:
             raise ValueError(f"span {size} outside (0, 2^32)")
         args.append((seed, size, *_row_args(d.key_words, d.tags, d.rows,
                                             dev)))
-    _entry("threefry_draws")
+    _build.entry(LIBRARY, "threefry_draws", _ARGTYPES["threefry_draws"])
     outs, entries = [], []
     for seed, size, k0, k1, nt, t0, t1, idx, row0, b, ddev in args:
         out = torch.empty((b, size) if seed else (b,),
@@ -379,8 +364,9 @@ def draws(table, device) -> list:
                 out.data_ptr()))
     if entries:
         arr = (_DrawEntry * len(entries))(*entries)
-        _launch("threefry_draws", outs[0].device, ctypes.addressof(arr),
-                len(entries))
+        _build.launch(LIBRARY, "threefry_draws", _ARGTYPES["threefry_draws"],
+                      launches, outs[0].device, ctypes.addressof(arr),
+                      len(entries))
     return outs
 
 

@@ -3,7 +3,7 @@
 Counterpart of the pin and LLR assembly the reference's jitted Bob programs
 fuse (``qtpu/window_programs.py``: ``_pin_masks``, the pin scatters and the
 mismatch count of ``_bob_core``, the LLR assembly of ``_decode_core`` and
-``retry_small``):
+of its retries):
 
 - ``pin_llr``: Bob's first decode.  From the received payload, Alice's
   disclosed shortening and test bits and the per-block test offsets, the
@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from qtpu_torch import _build
 from qtpu_torch.ldpc.decode import BIG_LLR
 from qtpu_torch.ldpc.encode import ColumnLayout
 
@@ -54,11 +55,11 @@ _ARGTYPES = {
     # rx, short, its stride, test, its stride, boff_t; ainv, b_s, s, k,
     # s_max; fill, its stride, sources; b, nb, z; P; qmag; rx_pin, pin,
     # mism, llr; stream
-    "pin_llr": [_PTR, _PTR, _LL, _PTR, _LL, _PTR] + [_U32] * 5
-    + [_PTR, _LL, _PTR] + [_INT] * 3 + [_U32, _FLOAT] + [_PTR] * 5,
+    "pin_llr": (_PTR, _PTR, _LL, _PTR, _LL, _PTR) + (_U32,) * 5
+    + (_PTR, _LL, _PTR) + (_INT,) * 3 + (_U32, _FLOAT) + (_PTR,) * 5,
     # rx_pin, pin, fill, its stride, sources; b, nb, z; P; qmag; llr; stream
-    "llr": [_PTR, _PTR, _PTR, _LL, _PTR] + [_INT] * 3 + [_U32, _FLOAT]
-    + [_PTR] * 2,
+    "llr": (_PTR, _PTR, _PTR, _LL, _PTR) + (_INT,) * 3 + (_U32, _FLOAT)
+    + (_PTR,) * 2,
 }
 
 
@@ -131,26 +132,8 @@ def pin_llr_plain(rx, short_alice, test_alice, boff_t, affine, s: int, k: int,
 # ---------------------------------------------------------------------------
 # The kernel's wrapper.
 
-def _entry(name: str):
-    """Entry point ``qtpu_<name>`` of the built library, typed."""
-    from qtpu_torch import _build
-    return _build.entry(LIBRARY, name, tuple(_ARGTYPES[name]))
-
-
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call entry point ``name`` with ``args`` on ``dev``'s current stream
-    (raises when it fails) and count the launch."""
-    from qtpu_torch import _build
-    _build.call(LIBRARY, name, tuple(_ARGTYPES[name]), dev, *args)
-    launches[name] += 1
-
-
 def _on_card(dev: torch.device) -> bool:
-    """True for a CUDA device, False for the CPU; raises for another."""
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"pin/LLR assembly runs on the CPU or a CUDA "
-                         f"device, not {dev}")
-    return dev.type == "cuda"
+    return _build.on_card(dev, "pin/LLR assembly")
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape, dev) -> None:
@@ -202,13 +185,15 @@ def llr(rx_pin, pin, fill, qmag, layout: ColumnLayout) -> torch.Tensor:
     _check(rx_pin, "rx_pin", torch.uint8, shape, dev)
     _check(pin, "pin", torch.bool, shape, dev)
     fill_ptr, fill_stride = _fill_arg(fill, b, dev, layout)
-    _entry("llr")
+    _build.entry(LIBRARY, "llr", _ARGTYPES["llr"])
     out = torch.empty((b, layout.nb * layout.z), dtype=torch.float32,
                       device=dev)
     if b:
-        _launch("llr", dev, rx_pin.data_ptr(), pin.data_ptr(), fill_ptr,
-                fill_stride, layout.on(dev)[1].data_ptr(), b, layout.nb,
-                layout.z, shape[1], float(qmag), out.data_ptr())
+        _build.launch(LIBRARY, "llr", _ARGTYPES["llr"], launches, dev,
+                      rx_pin.data_ptr(), pin.data_ptr(), fill_ptr,
+                      fill_stride, layout.on(dev)[1].data_ptr(), b,
+                      layout.nb, layout.z, shape[1], float(qmag),
+                      out.data_ptr())
     return out
 
 
@@ -243,17 +228,19 @@ def pin_llr(rx, short_alice, test_alice, boff_t, affine, s: int, k: int,
                          f"disclosures of {tuple(short_alice.shape)} and "
                          f"{tuple(test_alice.shape)} in P = {P}")
     fill_ptr, fill_stride = _fill_arg(fill, b, dev, layout)
-    _entry("pin_llr")
+    _build.entry(LIBRARY, "pin_llr", _ARGTYPES["pin_llr"])
     rx_pin = torch.empty(shape, dtype=torch.uint8, device=dev)
     pin = torch.empty(shape, dtype=torch.bool, device=dev)
     mism = torch.empty((b,), dtype=torch.int32, device=dev)
     out = torch.empty((b, layout.nb * layout.z), dtype=torch.float32,
                       device=dev)
     if b:
-        _launch("pin_llr", dev, rx.data_ptr(), short_alice.data_ptr(),
-                short_alice.shape[1], test_alice.data_ptr(),
-                test_alice.shape[1], boff_t.data_ptr(), ainv, b_s, s, k,
-                s_max, fill_ptr, fill_stride, layout.on(dev)[1].data_ptr(),
-                b, layout.nb, layout.z, P, float(qmag), rx_pin.data_ptr(),
-                pin.data_ptr(), mism.data_ptr(), out.data_ptr())
+        _build.launch(LIBRARY, "pin_llr", _ARGTYPES["pin_llr"], launches,
+                      dev, rx.data_ptr(), short_alice.data_ptr(),
+                      short_alice.shape[1], test_alice.data_ptr(),
+                      test_alice.shape[1], boff_t.data_ptr(), ainv, b_s, s,
+                      k, s_max, fill_ptr, fill_stride,
+                      layout.on(dev)[1].data_ptr(), b, layout.nb, layout.z,
+                      P, float(qmag), rx_pin.data_ptr(), pin.data_ptr(),
+                      mism.data_ptr(), out.data_ptr())
     return rx_pin, pin, mism, out

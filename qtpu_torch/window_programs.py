@@ -18,8 +18,8 @@ values):
   bob:          (arena, header, test_alice, short_alice, syn, exp_hashes,
                  qmag) -> (hat, rx_orig, rx_pin, pinmask, stats[, gled])
   retry_gather: (payload, positions) -> (B, k_r) disclosed retry bits
-  retry:        re-decode failed blocks with extra pinned disclosures
-  retry_small:  the same for at most R = 8 failed rows
+  retry:        re-decode the failed blocks (any number of rows) with
+                extra pinned disclosures and merge them back
   pa:           (payload, pakey) -> (B, l_max) uint8 final-key rows
   pack:         (B, L) uint8 -> (B, ceil(L/32)) int32 words (uint32 bit
                 patterns, LSB-first)
@@ -43,7 +43,7 @@ randomness folded by the GLOBAL block index, so sharding changes no bit),
 with no host sync between the shards and each CUDA shard on a stream of
 its own (``Mesh.run_shards``), and adds the psum'd decode-stage
 ledger ``gled`` (BASELINE config 5); its pin mask comes back as uint8.
-``retry``, ``retry_small`` and ``pa`` stay unsharded on ``device``.
+``retry`` and ``pa`` stay unsharded on ``device``.
 """
 
 from __future__ import annotations
@@ -113,7 +113,6 @@ class WindowPrograms(NamedTuple):
     bob: callable
     retry_gather: callable
     retry: callable
-    retry_small: callable
     pa: callable
     pack: callable
     l_max: int
@@ -223,7 +222,8 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
                      exp_hashes, **merge):
         """Decode the assembled ``llr`` -> verify against the verify seed
         ``vseed`` and merge (``window_verify.tail``'s mode: ``mism`` for
-        the first decode, else a retry's).  Returns (hat, stats (B, 4))."""
+        the first decode, ``rows`` for a retry).  Returns (hat, stats (B,
+        4))."""
         res = decoder(llr, syndromes.contiguous())
         return wv.tail(res.bits, rx_pin, pinmask, rx_orig, vseed[0],
                        exp_hashes.contiguous(), res.converged,
@@ -303,36 +303,14 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         block only)."""
         return payload[:, _t(positions)]
 
-    def retry_program(arena, header, rx_orig, rx_pin, pinmask, hat, stats,
-                      failed, positions, bits, syndromes, exp_hashes, qmag):
-        """Blind-reconciliation retry: pin Alice's disclosed bits in failed
-        rows, re-decode, merge with the previous round's results."""
+    def retry(arena, header, rx_orig, rx_pin, pinmask, hat, stats, rows,
+              positions, bits, syndromes, exp_hashes, qmag):
+        """Blind-reconciliation retry: pin Alice's disclosed bits (``bits``
+        (B, k_r), at ``positions``) in the failed rows ``rows`` (host window
+        indices, each once, any count), re-decode only those rows and
+        merge them into the previous round's ``hat`` and ``stats``."""
         pinmask = pinmask.to(torch.bool)
-        pos = _t(positions)
-        bits = torch.as_tensor(bits, device=device)
-        failed_b = _t(failed, torch.bool)[:, None]
-        rx2 = rx_pin.clone()
-        rx2[:, pos] = bits
-        rx2 = torch.where(failed_b, rx2, rx_pin)
-        pin2 = pinmask.clone()
-        pin2[:, pos] = True
-        pin2 = torch.where(failed_b, pin2, pinmask)
-        fill, vseed = _draw(device, _shortfill(header, range(B)),
-                            _verify_seed(header))
-        llr = wa.llr(rx2, pin2, fill, qmag, layout)
-        hat_m, stats_m = _decode_core(vseed, rx_orig, rx2, pin2, llr,
-                                      syndromes, exp_hashes, hat=hat,
-                                      stats=stats, failed=failed)
-        return hat_m, rx2, pin2, stats_m
-
-    def retry_small(arena, header, rx_orig, rx_pin, pinmask, hat, stats,
-                    rows, rows_valid, positions, bits, syndromes, exp_hashes,
-                    qmag):
-        """Compact retry: decode only the failed rows (``rows`` where
-        ``rows_valid``; the reference's fixed R = 8 row batch and its drop-
-        mode pad index are XLA shape artifacts) and merge them back."""
-        pinmask = pinmask.to(torch.bool)
-        sel_rows = np.asarray(rows)[np.asarray(rows_valid).astype(bool)]
+        sel_rows = np.asarray(rows, np.int64)
         sel = _t(sel_rows)
         pos = _t(positions)
         bits = torch.as_tensor(bits, device=device)
@@ -372,7 +350,6 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         return (w << shifts).sum(dim=-1).to(torch.int32)
 
     return WindowPrograms(alice=alice_program, bob=bob_program,
-                          retry_gather=retry_gather, retry=retry_program,
-                          retry_small=retry_small, pa=pa_program,
-                          pack=pack_rows,
+                          retry_gather=retry_gather, retry=retry,
+                          pa=pa_program, pack=pack_rows,
                           l_max=l_max, k_pb=Kq, s_max=Sm, retry_bits=Kr)

@@ -3,8 +3,8 @@ kernel.
 
 Counterpart of the verification the reference's jitted window programs
 fuse (``qtpu/window_programs.py``: ``_vmatrix`` and ``_verify_hash``, the
-tail of ``_decode_core`` with ``_extract_payload``, and the merges of
-``retry_program`` and ``retry_small``):
+tail of ``_decode_core`` with ``_extract_payload``, and the merge of
+its compact retry):
 
 - ``hash``: the GF(2) Toeplitz hash of a (b, P) payload against the
   window-level verify seed t of P + Vh - 1 bits: hash bit j of a row x is
@@ -12,11 +12,9 @@ tail of ``_decode_core`` with ``_extract_payload``, and the merges of
   t[j : j + P]).  Alice's program.
 - ``tail``: Bob's decode after the decoder.  hat = where(pin, rx_pin, the
   payload columns of the decoded bits), ok = all(hash(hat) == the
-  expected hashes) & converged, errs = popcount(hat ^ rx_orig), merged in
-  one of three modes: the first decode (stats [ok, iters, errs, mism]),
-  ``retry_program``'s (``failed``: every row re-decoded, the failed ones
-  merged) and ``retry_small``'s (``rows``: the re-decoded rows' places in
-  the window).
+  expected hashes) & converged, errs = popcount(hat ^ rx_orig), in one
+  of two modes: the first decode (stats [ok, iters, errs, mism]) and a
+  retry's merge (``rows``: the re-decoded rows' places in the window).
 
 On CPU tensors each function runs its plain PyTorch version (``*_plain``:
 the window programs' eager chain, a float32 matmul for the hash); on CUDA
@@ -37,6 +35,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from qtpu_torch import _build
 from qtpu_torch.ldpc.encode import ColumnLayout
 from qtpu_torch.window_assembly import _check
 
@@ -50,24 +49,23 @@ launches = {"verify_hash": 0, "verify_tail": 0}
 
 MAX_P = 1 << 17
 MAX_VH = 64      # hash bits the kernel takes (two 32-bit words a lane)
-# tail's modes (the kernel's): the first decode, retry_program's merge,
-# retry_small's.
-FIRST, RETRY, RETRY_SMALL = 0, 1, 2
+# tail's modes (the kernel's): the first decode, a retry's rows merge.
+FIRST, ROWS = 0, 1
 
 _U32, _INT, _PTR = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = {
     # x, seed; b; P; vh; out; cluster, groups, threads, smem; stream
-    "verify_hash": [_PTR, _PTR, _INT, _U32, _INT, _PTR] + [_INT] * 4
-    + [_PTR],
+    "verify_hash": (_PTR, _PTR, _INT, _U32, _INT, _PTR) + (_INT,) * 4
+    + (_PTR,),
     # bits, sources; nb, z; rx_pin, pin, rx_orig, seed, expected; vh;
     # converged, iterations, mism, order, hat_old, stats_old; mode, rows,
     # merged; P; hat, stats; cluster, groups, threads, smem, kept_ctas;
     # stream
-    "verify_tail": [_PTR, _PTR, _INT, _INT] + [_PTR] * 5 + [_INT]
-    + [_PTR] * 6 + [_INT, _INT, _INT, _U32] + [_PTR] * 2 + [_INT] * 5
-    + [_PTR],
+    "verify_tail": (_PTR, _PTR, _INT, _INT) + (_PTR,) * 5 + (_INT,)
+    + (_PTR,) * 6 + (_INT, _INT, _INT, _U32) + (_PTR,) * 2 + (_INT,) * 5
+    + (_PTR,),
     # tail, vec, cluster, threads, smem (no stream)
-    "verify_plan": [_INT] * 5,
+    "verify_plan": (_INT,) * 5,
 }
 
 # The launch plan.  Cluster sizes (16 needs the non-portable attribute,
@@ -218,18 +216,15 @@ def _check_exact_matmul(x: torch.Tensor) -> None:
                            "torch.backends.cuda.matmul.allow_tf32 = False")
 
 
-def _mode(mism, hat, stats, failed, rows) -> int:
-    """tail's mode from which of ``mism`` / ``failed`` / ``rows`` is given
-    (exactly one; the retries with the previous round's ``hat`` and
-    ``stats``)."""
-    given = [v is not None for v in (mism, failed, rows)]
-    if sum(given) != 1:
-        raise ValueError("give exactly one of mism (the first decode), "
-                         "failed (retry_program) and rows (retry_small)")
-    mode = given.index(True)
+def _mode(mism, hat, stats, rows) -> int:
+    """tail's mode from which of ``mism`` / ``rows`` is given (exactly one;
+    ``rows`` with the previous round's ``hat`` and ``stats``)."""
+    if (mism is None) == (rows is None):
+        raise ValueError("give exactly one of mism (the first decode) and "
+                         "rows (a retry)")
+    mode = FIRST if rows is None else ROWS
     if (hat is None) != (mode == FIRST) or (stats is None) != (mode == FIRST):
-        raise ValueError("hat and stats go with failed or rows, and only "
-                         "with them")
+        raise ValueError("hat and stats go with rows, and only with them")
     return mode
 
 
@@ -254,15 +249,15 @@ def hash_plain(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
 
 def tail_plain(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
                iterations, layout: ColumnLayout, mism=None, *, hat=None,
-               stats=None, failed=None, rows=None):
+               stats=None, rows=None):
     """``tail``'s plain version, on any device."""
-    mode = _mode(mism, hat, stats, failed, rows)
+    mode = _mode(mism, hat, stats, rows)
     b, dev = bits.shape[0], bits.device
     P = rx_pin.shape[1]
     pay = torch.as_tensor(_payload_columns(layout), device=dev)
     new = bits.reshape(b, layout.nb, layout.z)[:, pay, :].reshape(b, P)
     new = torch.where(pin, rx_pin, new)
-    if mode == RETRY_SMALL:
+    if mode == ROWS:
         sel = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
         rx_orig, exp_hashes = rx_orig[sel], exp_hashes[sel]
     hashes = hash_plain(new, seed)
@@ -272,15 +267,6 @@ def tail_plain(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
                      dim=1)
     if mode == FIRST:
         return new, torch.cat([st, mism[:, None]], dim=1)
-    if mode == RETRY:
-        failed_b = torch.as_tensor(np.asarray(failed).astype(bool),
-                                   device=dev)
-        ok = stats[:, 0].to(torch.bool) | (failed_b & st[:, 0].to(torch.bool))
-        hat_m = torch.where(failed_b[:, None], new, hat)
-        iters_m = torch.maximum(stats[:, 1], st[:, 1])
-        errs_m = torch.where(failed_b, st[:, 2], stats[:, 2])
-        return hat_m, torch.stack([ok.to(torch.int32), iters_m, errs_m,
-                                   stats[:, 3]], dim=1)
     hat_m = hat.clone()
     hat_m[sel] = new
     st_rows = stats[sel]
@@ -294,26 +280,12 @@ def tail_plain(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
 # ---------------------------------------------------------------------------
 # The kernel's wrappers.
 
-def _entry(name: str):
-    """Entry point ``qtpu_<name>`` of the built library, typed."""
-    from qtpu_torch import _build
-    return _build.entry(LIBRARY, name, tuple(_ARGTYPES[name]))
-
-
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call entry point ``name`` with ``args`` on ``dev``'s current stream
-    (raises when it fails) and count the launch."""
-    from qtpu_torch import _build
-    _build.call(LIBRARY, name, tuple(_ARGTYPES[name]), dev, *args)
-    launches[name] += 1
-
-
 @functools.cache
 def _max_clusters(device: int, tail: bool, vec: bool, cluster: int,
                   threads: int, smem: int) -> int:
     """cudaOccupancyMaxActiveClusters of an instantiation at a shape on
     CUDA ``device``, asked once (the kernel's attributes set first)."""
-    fn = _entry("verify_plan")
+    fn = _build.entry(LIBRARY, "verify_plan", _ARGTYPES["verify_plan"])
     with torch.cuda.device(device):
         return int(fn(int(tail), int(vec), cluster, threads, smem))
 
@@ -341,11 +313,7 @@ def _device_index(dev: torch.device) -> int:
 
 
 def _on_card(dev: torch.device) -> bool:
-    """True for a CUDA device, False for the CPU; raises for another."""
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"the verify hash runs on the CPU or a CUDA "
-                         f"device, not {dev}")
-    return dev.type == "cuda"
+    return _build.on_card(dev, "the verify hash")
 
 
 def _hash_bits(seed: torch.Tensor, P: int, dev) -> int:
@@ -376,15 +344,9 @@ def _row_order(src: np.ndarray) -> tuple[np.ndarray, int]:
     return order.astype(np.int32), int(merged.size)
 
 
-def _source_rows(mode: int, failed, rows, b: int, B: int) -> np.ndarray:
+def _source_rows(rows, b: int, B: int) -> np.ndarray:
     """(B,) int32: each window row's decoded row, or -1 where the retry
     leaves it as it was; raises on a map the kernel would race on."""
-    if mode == RETRY:
-        f = _host(failed, "failed").astype(bool)
-        if f.shape != (B,) or b != B:
-            raise ValueError(f"failed must be ({B},) for a decode of all "
-                             f"{B} rows, got {f.shape} and {b} rows")
-        return np.where(f, np.arange(B), -1).astype(np.int32)
     r = _host(rows, "rows").astype(np.int64)
     if r.shape != (b,) or (b and (r.min() < 0 or r.max() >= B)):
         raise ValueError(f"rows must be ({b},) rows of the window's {B}, "
@@ -406,7 +368,7 @@ def hash(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     _check(x, "x", torch.uint8, (None, None), dev)
     b, P = x.shape
     vh = _hash_bits(seed, P, dev)
-    _entry("verify_hash")
+    _build.entry(LIBRARY, "verify_hash", _ARGTYPES["verify_hash"])
     out = torch.empty((b, vh), dtype=torch.uint8, device=dev)
     if b:
         _launch_hash(x, seed, out, launch_plan(_device_index(dev), b, b, P,
@@ -417,14 +379,15 @@ def hash(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
 def _launch_hash(x, seed, out, p: Plan) -> None:
     """One launch of the hash on checked CUDA inputs at plan ``p``."""
     b, P = x.shape
-    _launch("verify_hash", x.device, x.data_ptr(), seed.data_ptr(), b, P,
-            out.shape[1], out.data_ptr(), p.cluster, p.groups, p.threads,
-            p.smem)
+    _build.launch(LIBRARY, "verify_hash", _ARGTYPES["verify_hash"], launches,
+                  x.device, x.data_ptr(), seed.data_ptr(), b, P,
+                  out.shape[1], out.data_ptr(), p.cluster, p.groups,
+                  p.threads, p.smem)
 
 
 def tail(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
          iterations, layout: ColumnLayout, mism=None, *, hat=None,
-         stats=None, failed=None, rows=None):
+         stats=None, rows=None):
     """(hat (B, P) uint8, stats (B, 4) int32) of Bob's decode of b rows.
 
     bits (b, nb·z) uint8, converged (b,) bool, iterations (b,) int32: the
@@ -435,22 +398,18 @@ def tail(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
 
     - ``mism`` (b,) int32 (B = b): the first decode, stats [ok, iters,
       errs, mism];
-    - ``failed`` (B,) host bools (b = B): ``retry_program``'s merge into
-      the previous round's ``hat`` and ``stats``: the failed rows' hat,
-      ok | old ok and errs, the other rows' as they were, max(old, new)
-      iterations on every row, the old mismatch count;
-    - ``rows`` (b,) host ints, each row once: ``retry_small``'s: decoded
-      row i lands in window row rows[i] with its hat, ok and errs, max(old,
-      new) iterations and the old mismatch count; the other rows as they
-      were.
+    - ``rows`` (b,) host ints, each row once: a retry's merge into the
+      previous round's ``hat`` and ``stats``: decoded row i lands in window
+      row rows[i] with its hat, ok and errs, max(old, new) iterations and
+      the old mismatch count; the other rows as they were.
 
     One launch on a card."""
-    mode = _mode(mism, hat, stats, failed, rows)
+    mode = _mode(mism, hat, stats, rows)
     dev = bits.device
     if not _on_card(dev):
         return tail_plain(bits, rx_pin, pin, rx_orig, seed, exp_hashes,
                           converged, iterations, layout, mism, hat=hat,
-                          stats=stats, failed=failed, rows=rows)
+                          stats=stats, rows=rows)
     b = bits.shape[0]
     P = layout.widths[0] * layout.z
     _check(bits, "bits", torch.uint8, (b, layout.nb * layout.z), dev)
@@ -468,9 +427,9 @@ def tail(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
     else:
         _check(hat, "hat", torch.uint8, (B, P), dev)
         _check(stats, "stats", torch.int32, (B, 4), dev)
-        order, merged = _row_order(_source_rows(mode, failed, rows, b, B))
+        order, merged = _row_order(_source_rows(rows, b, B))
         order = torch.from_numpy(order)
-    _entry("verify_tail")
+    _build.entry(LIBRARY, "verify_tail", _ARGTYPES["verify_tail"])
     if order is not None:
         # The row order goes up from pinned memory without a host sync.
         order = order.pin_memory().to(dev, non_blocking=True)
@@ -489,17 +448,18 @@ def _launch_tail(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
                  iterations, layout: ColumnLayout, mism, hat, stats,
                  mode: int, order, merged: int, hat_out, stats_out,
                  p: Plan) -> None:
-    """One launch of the tail on checked CUDA inputs (``order``: the
-    retries' row order on the card) at plan ``p``."""
+    """One launch of the tail on checked CUDA inputs (``order``: a
+    retry's row order on the card) at plan ``p``."""
     def ptr(t):
         return None if t is None else t.data_ptr()
     dev = bits.device
     B, P = hat_out.shape
-    _launch("verify_tail", dev, bits.data_ptr(),
-            layout.on(dev)[1].data_ptr(), layout.nb, layout.z,
-            rx_pin.data_ptr(), pin.data_ptr(), rx_orig.data_ptr(),
-            seed.data_ptr(), exp_hashes.data_ptr(), exp_hashes.shape[1],
-            converged.data_ptr(), iterations.data_ptr(), ptr(mism),
-            ptr(order), ptr(hat), ptr(stats), mode, B, merged, P,
-            hat_out.data_ptr(), stats_out.data_ptr(), p.cluster, p.groups,
-            p.threads, p.smem, p.kept_ctas)
+    _build.launch(LIBRARY, "verify_tail", _ARGTYPES["verify_tail"], launches,
+                  dev, bits.data_ptr(), layout.on(dev)[1].data_ptr(),
+                  layout.nb, layout.z, rx_pin.data_ptr(), pin.data_ptr(),
+                  rx_orig.data_ptr(), seed.data_ptr(), exp_hashes.data_ptr(),
+                  exp_hashes.shape[1], converged.data_ptr(),
+                  iterations.data_ptr(), ptr(mism), ptr(order), ptr(hat),
+                  ptr(stats), mode, B, merged, P, hat_out.data_ptr(),
+                  stats_out.data_ptr(), p.cluster, p.groups, p.threads,
+                  p.smem, p.kept_ctas)

@@ -24,9 +24,10 @@ pin_llr and llr at z = 2,048, 64 and 16, B = 1 to 128, every input
 aligned or off alignment; LLRs by their float32 bit patterns), the
 verify kernel's hash and its tail in each mode against their plain
 versions (production rungs, z = 16, 24, 10 and 64, Vh 1 to 64, 1 to 300
-rows, every input aligned or one byte off; retries that keep no row, all
-rows but one, and retry_small on rows that are not contiguous; the kernel
-refuses a plan that is not the host's), a session on the card against the
+rows, every input aligned or one byte off; a retry's rows merge of 11
+rows, of all rows (it keeps none) and of one (it keeps all but one), on
+rows that are not contiguous; the kernel refuses a plan that is not the
+host's), a session on the card against the
 same session on
 the CPU (final keys, ledgers, per-window metrics), the bench's BSC stream
 on the card against the CPU and its per-chip replay on the card, and the
@@ -423,8 +424,8 @@ def test_threefry_randint_on_card_matches_plain(dev, span):
 def _production_draw_tables(dev):
     """(label, table) of every draw table the window programs make at each
     rung of the production ladder (``chip_smoke.py`` phase 5b's shapes),
-    with the shortening fill of one z = 2,048 column, retry_small's 8
-    index rows, 4 shards' row ranges and tables of ragged lengths."""
+    with the shortening fill of one z = 2,048 column, the retry's 8 index
+    rows, 4 shards' row ranges and tables of ragged lengths."""
     from qtpu_torch import random as tr
     from qtpu_torch.link import make_direct_pair
     from qtpu_torch.pipeline import BobSession, production_config
@@ -445,9 +446,7 @@ def _production_draw_tables(dev):
         alice = [tr.SeedRows(pkey, (), range(B), pad)] if pad else []
         out += [(f"r{r} alice", alice + [fill, verify, offsets]),
                 (f"r{r} bob", [offsets, fill, verify]),
-                (f"r{r} retry", [fill, verify]),
-                (f"r{r} retry_small", [tr.SeedRows(wkey, (5,), idx, z),
-                                       verify]),
+                (f"r{r} retry", [tr.SeedRows(wkey, (5,), idx, z), verify]),
                 (f"r{r} pa", [tr.SeedRows(pakey, (), range(B),
                                           P + l_max - 1)] if l_max else [])]
         out += [(f"r{r} shard {g}",
@@ -896,65 +895,61 @@ def test_verify_hash_on_card_matches_plain(dev, b, vh, off):
         _same_out((got,), (wv.hash_plain(x, seed),), (name, b))
 
 
-def _tail_merges(mode, b, B, P, g):
-    """(label, merge kwargs) of ``mode`` for b decoded rows of a window of
-    B: the first decode; retry_program with min(11, B) rows failed, with
-    every row failed (it keeps no row) and with one (it keeps all but
-    one), old iterations below and above the new; retry_small's rows on
-    window rows that are not contiguous (a random permutation's first
-    b)."""
+def _tail_calls(mode, b):
+    """(decoded rows, window rows) of ``mode``'s calls at b: the first
+    decode of b rows; the rows merge of min(11, b) rows, of all b (it keeps
+    none) and of one (it keeps all but one) of a window of b, and of b
+    rows of a window of 128 where b < 128."""
+    if mode == "first":
+        return [(b, b)]
+    calls = [(min(11, b), b), (b, b), (1, b)] + ([(b, 128)] if b < 128
+                                                  else [])
+    return list(dict.fromkeys(calls))
+
+
+def _tail_merge(mode, n, B, P, g):
+    """The merge kwargs of ``mode`` for n decoded rows of a window of B:
+    the first decode's mismatch counts; the rows merge's old hat and
+    stats (old iterations below and above the new) and its rows, window
+    rows that are not contiguous (a random permutation's first n)."""
     dev = g.device
     if mode == "first":
-        return [("first", dict(mism=torch.randint(
-            0, 9, (b,), generator=g, device=dev, dtype=torch.int32)))]
-
-    def old():
-        st = torch.randint(0, 60, (B, 4), generator=g, device=dev,
-                           dtype=torch.int32)
-        st[:, 0] = torch.randint(0, 3, (B,), generator=g, device=dev)
-        return dict(hat=torch.randint(0, 2, (B, P), generator=g, device=dev,
-                                      dtype=torch.uint8), stats=st)
-    pick = torch.randperm(B, generator=g, device=dev).cpu().numpy()
-    if mode == "retry_small":
-        rows = pick[:b]
-        assert b < 2 or b == B or np.ptp(rows) >= b, rows
-        return [(f"rows {rows[:4].tolist()}..", dict(old(), rows=rows))]
-    out = []
-    for failed_rows in (min(11, B), B, 1):
-        failed = np.zeros(B, bool)
-        failed[pick[:failed_rows]] = True
-        out.append((f"{failed_rows} failed", dict(old(), failed=failed)))
-    return out
+        return dict(mism=torch.randint(0, 9, (n,), generator=g, device=dev,
+                                       dtype=torch.int32))
+    st = torch.randint(0, 60, (B, 4), generator=g, device=dev,
+                       dtype=torch.int32)
+    st[:, 0] = torch.randint(0, 3, (B,), generator=g, device=dev)
+    rows = torch.randperm(B, generator=g, device=dev).cpu().numpy()[:n]
+    assert n < 2 or n == B or np.ptp(rows) >= n, rows
+    return dict(hat=torch.randint(0, 2, (B, P), generator=g, device=dev,
+                                  dtype=torch.uint8), stats=st, rows=rows)
 
 
 @pytest.mark.parametrize("off", [0, 1])
-@pytest.mark.parametrize("mode", ["first", "retry", "retry_small"])
+@pytest.mark.parametrize("mode", ["first", "rows"])
 @pytest.mark.parametrize("b", VERIFY_ROWS)
 def test_verify_tail_on_card_matches_plain(dev, b, mode, off):
-    """Each mode at every layout and b decoded rows: the first decode (B =
-    b), retry_program (B = b; 11 failed, all failed, one failed),
-    retry_small (b of B = max(128, b) window rows); every input aligned or
-    one byte off alignment; one launch a call, bit for bit."""
+    """Each mode at every layout and b rows (``_tail_calls``): the first
+    decode (B = b); the rows merge of 11, all and one of B = b rows, and
+    of b of B = 128; every input aligned or one byte off alignment; one
+    launch a call, bit for bit."""
     from qtpu_torch import window_verify as wv
     g = torch.Generator(device=dev).manual_seed(400 + off + b)
-    B = b if mode != "retry_small" else max(128, b)
     for name, layout in _verify_layouts():
         P = layout.widths[0] * layout.z
-        args = _tail_inputs(layout, b, B, g)
-        for label, merge in _tail_merges(mode, b, B, P, g):
+        for n, B in _tail_calls(mode, b):
+            args = _tail_inputs(layout, n, B, g)
+            merge = _tail_merge(mode, n, B, P, g)
             if off:
-                args = {k: (_off_alignment(v, off)
-                            if isinstance(v, torch.Tensor) else v)
-                        for k, v in args.items()}
-                merge = {k: (_off_alignment(v, off)
-                             if isinstance(v, torch.Tensor) else v)
-                         for k, v in merge.items()}
+                args, merge = ({k: (_off_alignment(v, off)
+                                    if isinstance(v, torch.Tensor) else v)
+                                for k, v in d.items()} for d in (args, merge))
             before = wv.launches["verify_tail"]
             got = wv.tail(**args, **merge)
             torch.cuda.synchronize()
             assert wv.launches["verify_tail"] == before + 1
             want = wv.tail_plain(**args, **merge)
-            _same_out(got, want, (name, b, label))
+            _same_out(got, want, (name, n, B))
             if mode == "first" and b >= 8:
                 ok = want[1][:, 0].bool().cpu()
                 assert ok.any() and not ok.all(), (name, b)
@@ -991,7 +986,7 @@ def test_verify_kernel_rejects_bad_inputs_on_card(dev):
                 p._replace(cluster=3)):
         with pytest.raises(RuntimeError, match=r"code -1"):
             _build.call(wv.LIBRARY, "verify_hash",
-                        tuple(wv._ARGTYPES["verify_hash"]), dev,
+                        wv._ARGTYPES["verify_hash"], dev,
                         x.data_ptr(), seed.data_ptr(), b, P, vh,
                         out.data_ptr(), bad.cluster, bad.groups,
                         bad.threads, bad.smem)

@@ -6,7 +6,8 @@ with the receiver's: for the layered and the flooding min-sum decoder and
 for stream PA; then the same with the other package's Bob on a mesh of 8
 shards (8 CPU shards in the port, the conftest's 8 forced CPU devices in
 qtpu), layered and stream PA, at sizes where the reference's float32
-sharded flush is exact.  Both parties must end with identical final keys,
+sharded flush is exact; and a ``qtpu`` Alice with a port Bob at B = 16
+whose retry round re-decodes more than 8 of a window's rows.  Both parties must end with identical final keys,
 key index and ledgers, equal to a port-only unsharded session's.  Then one two-process run over
 TCP: ``python -m qtpu.cli alice`` against ``python -m qtpu_torch.cli
 --device cpu bob`` with channel authentication; both must report the same
@@ -140,6 +141,47 @@ def test_mixed_mesh_session_keys_and_ledgers(alice_side, kind):
     if kind == "stream":
         assert pb._stream_flushes >= 2
         assert all(b < 0 for _, b in pb.final_key_index)
+
+
+def test_mixed_session_wide_retry():
+    """A ``qtpu`` Alice with a port Bob at B = 16, the bits of
+    tests/test_torch_tracing.py (3%, one window at 9%): a retry round
+    re-decodes more than 8 of a window's 16 rows, and both parties end
+    with the keys, key index and ledgers of a port-only session."""
+    rng = np.random.default_rng(1)
+    n = 1024 * 16 * 8
+    a_bits = rng.integers(0, 2, n).astype(np.uint8)
+    q = np.full(n, 0.03)
+    q[4 * 1024 * 16:5 * 1024 * 16] = 0.09
+    b_bits = a_bits ^ (rng.random(n) < q).astype(np.uint8)
+    kw = dict(n=1024, blocks_per_window=16, qber_test_bits=512,
+              max_inflight_windows=1)
+
+    def run(apipe, alink):
+        a2b, b2a = collections.deque(), collections.deque()
+        la = alink.LoopbackLink(a2b, b2a)
+        lb = tlink.LoopbackLink(b2a, a2b)
+        alice = apipe.AliceSession(apipe.PipelineConfig(**kw), 0x5E55, la,
+                                   **_cpu(apipe))
+        bob = tpipe.BobSession(tpipe.PipelineConfig(**kw), 0x5E55, lb,
+                               device="cpu")
+        alice.push_sifted(a_bits)
+        bob.push_sifted(b_bits)
+        tpipe.pump_sessions(alice, bob, la, lb)
+        return alice, bob
+
+    alice, bob = run(jpipe, jlink)
+    pa, pb = run(tpipe, tlink)
+    assert max(m.blocks_retried for m in bob.metrics) > 8
+    key = pb.final_key_bits()
+    assert key.size > 0 and bob.window_id == pb.window_id >= 4
+    np.testing.assert_array_equal(alice.final_key_bits(), key)
+    np.testing.assert_array_equal(bob.final_key_bits(), key)
+    assert alice.final_key_index == bob.final_key_index == pb.final_key_index
+    assert (alice.ledger.as_dict() == bob.ledger.as_dict()
+            == pb.ledger.as_dict())
+    assert [m.as_dict() for m in bob.metrics] == [m.as_dict()
+                                                 for m in pb.metrics]
 
 
 def _free_port() -> int:

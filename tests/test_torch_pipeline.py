@@ -80,15 +80,35 @@ def test_loopback_wire_matches_reference():
     _both(*_sifted(30, 40_000, 0.03), wire=True)
 
 
-@pytest.mark.parametrize("alg", ["layered", "minsum"])
-def test_loopback_retry_matches_reference(alg):
+def _burst(seed, blocks, windows, burst):
+    """Sifted bits at 3% whose window ``burst`` (of ``blocks`` n = 1024
+    blocks a window, at most) runs at 9%."""
+    rng = np.random.default_rng(seed)
+    n = 1024 * blocks * windows
+    alice = rng.integers(0, 2, n).astype(np.uint8)
+    q = np.full(n, 0.03)
+    q[burst * 1024 * blocks:(burst + 1) * 1024 * blocks] = 0.09
+    return alice, alice ^ (rng.random(n) < q).astype(np.uint8)
+
+
+@pytest.mark.parametrize("alg,scenario", [
+    pytest.param("layered", "cold_prior", id="layered"),
+    pytest.param("minsum", "cold_prior", id="minsum"),
+    pytest.param("layered", "burst16", id="layered-burst16")])
+def test_loopback_retry_matches_reference(alg, scenario):
     """tests/test_pipeline.py's blind-retry scenario: the channel runs
     6.8% against a 4% cold prior, so windows fail blocks and a retry round
-    runs."""
-    _, tb = _both(*_sifted(3, 30_000, 0.068), qber_initial=0.04,
-                  qber_test_bits=64, qber_test_floor=32, max_retries=1,
-                  alg=alg)
-    assert sum(m.blocks_retried for m in tb.metrics) > 0
+    runs.  ``burst16``: B = 16 blocks a window and a burst of errors in one
+    window (tests/test_torch_tracing.py's), so a retry round re-decodes
+    more than 8 of its 16 rows."""
+    if scenario == "cold_prior":
+        _, tb = _both(*_sifted(3, 30_000, 0.068), qber_initial=0.04,
+                      qber_test_bits=64, qber_test_floor=32, max_retries=1,
+                      alg=alg)
+        assert sum(m.blocks_retried for m in tb.metrics) > 0
+    else:
+        _, tb = _both(*_burst(1, 16, 8, 4), blocks_per_window=16, alg=alg)
+        assert max(m.blocks_retried for m in tb.metrics) > 8
 
 
 def test_unported_options_raise():

@@ -130,6 +130,47 @@ def test_device_trace_on_the_cpu_traces_nothing():
     assert tr.kernels is None and not tr.tracing and not tr.regions
 
 
+def test_device_trace_counts_kernels_not_span_ranges(monkeypatch):
+    """A program span's ``qtpu_torch:`` range (a top-level span's, such as
+    the decoder's ``decode`` called alone) lies on the card's timeline
+    over the span's kernels: the trace keeps the kernel, the copy and the
+    region, and leaves the range out (it was counted as a kernel, which
+    doubled a decode's device time)."""
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+
+    def ev(name, start, end, dev=DeviceType.CUDA):
+        return SimpleNamespace(name=name, device_type=dev,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=end))
+    events = [ev(profiling.REGION + "calls", 0.0, 30.0),
+              ev("qtpu_torch:decode", 1.0, 21.0),
+              ev("bp_layered_kernel", 1.0, 21.0),
+              ev("Memcpy HtoD (Pageable -> Device)", 22.0, 23.0),
+              ev("qtpu_torch:decode", 0.5, 21.5, DeviceType.CPU)]
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return events
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    with profiling.device_trace(torch.device("cuda", 0)) as tr:
+        pass
+    assert tr.kernels == [("bp_layered_kernel", 1.0, 21.0)]
+    assert tr.copies == [(22.0, 23.0)]
+    calls = tr.part("calls")
+    assert calls.kernel_ms() == pytest.approx(20e-3)
+    assert len(calls.kernels) == 1
+
+
 @pytest.mark.parametrize("argv", [["programs"], ["chain", "2"]])
 def test_cli_needs_cuda_unless_told_cpu(argv):
     if torch.cuda.is_available():

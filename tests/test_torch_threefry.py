@@ -98,7 +98,7 @@ def test_seed_rows_at_equals_reference(tags, length):
 
 @pytest.mark.parametrize("length", [33, 2048, 63551])
 def test_seed_rows_at_index_rows_equal_reference(length):
-    """retry_small's failed rows: an index tensor, any order, a full-width
+    """A retry's failed rows: an index tensor, any order, a full-width
     uint32 row included."""
     words = _key_words(7)
     idx = np.array([5, 0, 127, 3, 96, 2**32 - 1], np.int64)
@@ -270,8 +270,8 @@ TABLES = {
         tr.Randint(w, (TAG_TOFF,), range(96, 128), 63488),
         tr.SeedRows(w, (TAG_SHORTFILL,), range(96, 128), 2048),
         tr.SeedRows(w, (TAG_VERIFY,), range(1), 63551)],
-    # retry_small: index rows beside a range.
-    "retry_small": lambda w: [
+    # The retry: index rows beside a range.
+    "retry": lambda w: [
         tr.SeedRows(w, (TAG_SHORTFILL,), _IDX, 33),
         tr.SeedRows(w, (TAG_VERIFY,), range(1), 100)],
     # Eight draws (the most a table takes): every kind, 0-2 tags, range
@@ -320,7 +320,7 @@ def table_as_card(monkeypatch):
                            else getattr(e, f)) for f, _ in e._fields_}
                       for e in entries])
     monkeypatch.setattr(tr, "_on_card", lambda dev: True)
-    monkeypatch.setattr(tr, "_entry", lambda name: None)
+    monkeypatch.setattr(_build, "entry", lambda *a: None)
     monkeypatch.setattr(_build, "call", call)
     return calls
 

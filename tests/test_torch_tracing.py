@@ -22,9 +22,9 @@ from qtpu_torch import pipeline, tracing
 
 B = 16
 # Nine windows at n = 1024: the fifth window's bits carry a burst of
-# errors, so its decode fails in more than 8 blocks (the full retry) and
-# the sixth in fewer (the compact retry); a drain every 4 windows leaves
-# one window's keys for the inline drain.
+# errors, so its decode fails in more than 8 blocks and the sixth in
+# fewer, each retried by one ``program.retry``; a drain every 4 windows
+# leaves one window's keys for the inline drain.
 CFG = pipeline.PipelineConfig(n=1024, blocks_per_window=B,
                               qber_test_bits=512, drain_windows=4)
 WINDOWS, BURST = 8, 4
@@ -35,13 +35,12 @@ SESSION_SPANS = {
     "bob.on_syndromes", "bob.on_retry", "bob.flush", "bob.resolve_decode",
     "bob.finalize", "push_sifted", "pa.host_total", "host.affine_for",
     "host.prng_derive", "program.alice", "program.bob", "program.retry",
-    "program.retry_small", "program.retry_gather", "program.pa",
+    "program.retry_gather", "program.pa",
     "program.pack", "drain", "drain.join", "drain.unpack", "drain.sort",
     "drain.materialize", "decode", "setup.ladder", "setup.programs"}
 PROGRAMS = {"program.alice": "alice.on_rate_select",
             "program.bob": "bob.on_syndromes",
             "program.retry": "bob.on_retry",
-            "program.retry_small": "bob.on_retry",
             "program.retry_gather": "alice.on_verify_ack",
             "program.pa": "pa.host_total", "program.pack": "pa.host_total"}
 
@@ -125,8 +124,7 @@ def test_spans_carry_windows_and_parents(traced):
             # The decoder's spans take the window of the program that
             # called it.
             up = by_id[sp.parent]
-            assert up.name in ("program.bob", "program.retry",
-                               "program.retry_small")
+            assert up.name in ("program.bob", "program.retry")
             assert sp.window == up.window
         elif sp.name in ("alice.on_rate_select", "bob.on_syndromes"):
             assert by_id[sp.parent].name.endswith(".on_message")
@@ -157,7 +155,9 @@ def test_span_counts_equal_what_the_session_reports(traced):
     assert n["bob.finalize"] == len(bob._completed) == len(bob.metrics)
     assert len(alice._aborted) + len(bob._aborted) == 0
     retried = sum(m.blocks_retried > 0 for m in bob.metrics)
-    assert n["program.retry"] + n["program.retry_small"] == retried >= 2
+    assert n["program.retry"] == retried >= 2
+    assert "program.retry_small" not in n
+    assert max(m.blocks_retried for m in bob.metrics) > 8
     assert n["decode"] == len(bob.metrics) + retried
     # The worker's drains and the one inline drain a party cover every
     # window its keys come from.

@@ -466,8 +466,8 @@ def test_each_program_draws_in_one_table(monkeypatch):
     """Every window program that draws makes all of its draws in one
     ``random.draws`` call (one launch on a card): Alice the pad, fill,
     verify seed and offsets, Bob the offsets, fill and verify seed (the
-    verify seed no longer after the decode), each retry the fill and the
-    verify seed, the PA its seed; the outputs equal the draws made one by
+    verify seed no longer after the decode), the retry the fill and the
+    verify seed (at any number of rows), the PA its seed; the outputs equal the draws made one by
     one, as before, and no program depends on what ran before it."""
     from qtpu_torch.ldpc.codes import make_regular_code as t_regular
     from qtpu_torch.window_programs import make_header, make_window_programs
@@ -507,14 +507,13 @@ def test_each_program_draws_in_one_table(monkeypatch):
         arena, bob_hdr, test_v, short_v, syn, hashes, 2.0)
     assert calls == [["Randint", "SeedRows", "SeedRows"]]
     calls.clear()
-    failed = np.array([True, False, True, False])
+    failed = np.array([0, 2])
     positions = np.arange(0, P, 7)[:100]
     bits = payload[:, torch.from_numpy(positions)]
     progs.retry(arena, bob_hdr, rx_orig, rx_pin, pinmask, hat, stats, failed,
                 positions, bits, syn, hashes, 2.0)
-    progs.retry_small(arena, bob_hdr, rx_orig, rx_pin, pinmask, hat, stats,
-                      np.array([0, 2, 0, 0]), np.array([1, 1, 0, 0]),
-                      positions, bits, syn, hashes, 2.0)
+    progs.retry(arena, bob_hdr, rx_orig, rx_pin, pinmask, hat, stats,
+                np.arange(B), positions, bits, syn, hashes, 2.0)
     progs.pa(payload, [9, 10])
     assert calls == [["SeedRows", "SeedRows"]] * 2 + [["SeedRows"]]
     # A program set that ran nothing before gives the same retry.

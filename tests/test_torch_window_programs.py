@@ -149,6 +149,11 @@ def _retry_inputs(case):
 
 
 def test_retry_program(case):
+    """The port's one retry on the failed rows == the reference's
+    ``retry_program``, which re-decodes every row and merges the failed
+    ones: an unfailed row re-decodes from its own pins to its own
+    iterations, so the two agree where the old stats are the first
+    decode's, as the protocol hands them over."""
     failed, positions, bits = _retry_inputs(case)
     jb, tb = case["j_bob"], case["t_bob"]
     jt = case["jp"].retry(
@@ -158,7 +163,7 @@ def test_retry_program(case):
         case["j_alice"][1], case["j_alice"][2], jnp.float32(case["qmag"]))
     tt = case["tp"].retry(
         torch.from_numpy(case["b_arena"]), case["hdr_b"], tb[1], tb[2], tb[3],
-        tb[0], tb[4], failed.astype(np.uint8), positions,
+        tb[0], tb[4], np.flatnonzero(failed), positions,
         torch.from_numpy(bits.copy()), case["t_alice"][1],
         case["t_alice"][2], case["qmag"])
     _eq(jt[1], tt[1])
@@ -167,6 +172,9 @@ def test_retry_program(case):
 
 
 def test_retry_small_program(case):
+    """The port's one retry == the reference's ``retry_small``, whose
+    fixed R-row index pads the failed rows with the out-of-range row B
+    and a ``valid`` mask (XLA shape artifacts the port has not)."""
     failed, positions, bits = _retry_inputs(case)
     R = case["B"]
     nf = int(failed.sum())
@@ -180,10 +188,11 @@ def test_retry_small_program(case):
         jb[2], jb[3], jb[0], jb[4], jnp.asarray(rows), jnp.asarray(valid),
         jnp.asarray(positions), jnp.asarray(bits), case["j_alice"][1],
         case["j_alice"][2], jnp.float32(case["qmag"]))
-    tt = case["tp"].retry_small(
+    tt = case["tp"].retry(
         torch.from_numpy(case["b_arena"]), case["hdr_b"], tb[1], tb[2], tb[3],
-        tb[0], tb[4], rows, valid, positions, torch.from_numpy(bits.copy()),
-        case["t_alice"][1], case["t_alice"][2], case["qmag"])
+        tb[0], tb[4], np.flatnonzero(failed), positions,
+        torch.from_numpy(bits.copy()), case["t_alice"][1],
+        case["t_alice"][2], case["qmag"])
     _eq(jt[1], tt[1])
     _eq(jt[2], tt[2])
     _eq_decoded(jt[0], tt[0], jt[3], tt[3])

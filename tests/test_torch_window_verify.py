@@ -5,12 +5,15 @@ host side of the kernel's wrappers.
 ``hash_plain`` and ``tail_plain`` are held to ``qtpu``'s programs on one
 window of a regular n = 1024 code with a shortened and a punctured column
 (B = 12, ten blocks noisy enough to fail): Alice's hashes; Bob's first
-decode; ``retry_program`` with more than 8 failed rows and the unfailed
-rows' old iterations set below the new ones (the reference takes the
-maximum on every row); ``retry_small`` on some of the failed rows.  The
-port's programs call ``window_verify.tail`` (on CPU tensors its plain
-version); each call's arguments are recorded and ``tail_plain`` is called
-on them again.  Tolerance: exact, except that hat and the error count are
+decode; the port's retry of the ten failed rows against the reference's
+``retry_program``, which re-decodes every row and merges the failed ones
+(the two agree because the old stats are the first decode's own, as the
+protocol hands them over: an unfailed row re-decodes to its own
+iterations); its retry of four of the failed rows against the
+reference's ``retry_small``; its retry of all twelve rows against
+``retry_program`` with every row failed.  The port's programs call
+``window_verify.tail`` (on CPU tensors its plain version); each call's
+arguments are recorded and ``tail_plain`` is called on them again.  Tolerance: exact, except that hat and the error count are
 compared on verified blocks only (XLA on the CPU contracts the decoder's
 ``alpha*min - c2v`` into an FMA, see tests/test_torch_window_programs.py).
 
@@ -22,7 +25,8 @@ slices' words XORed; the payload column of a position by the kernel's
 reciprocal of z; each mode's merge through the row map the wrapper
 builds) is held to the plain versions, exactly: the hash at P = 0, 1 and
 31 (mod 32), Vh = 1, 31, 32, 33 and 64, and rows that start one byte off
-alignment; the tail on the recorded calls of every mode.
+alignment; the tail on every recorded call (the first decode, and the
+rows merge at 4, 10 and all 12 rows).
 
 The launch plan (``window_verify.plan``, on a model of an H100's
 occupancy: the resident clusters the card reported) is held to the split
@@ -167,18 +171,18 @@ def _payload_source(layout: ColumnLayout) -> np.ndarray:
 
 def _model_tail(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
                 iterations, layout, mism=None, *, hat=None, stats=None,
-                failed=None, rows=None):
+                rows=None):
     """The kernel's tail, row by row, on numpy copies of the arguments."""
     n = (lambda t: None if t is None else t.numpy())
     bits, rx_pin, pin, rx_orig, seed, exp, conv, iters, mism, hat, stats = (
         n(t) for t in (bits, rx_pin, pin, rx_orig, seed, exp_hashes,
                        converged, iterations, mism, hat, stats))
-    mode = wv._mode(mism, hat, stats, failed, rows)
+    mode = wv._mode(mism, hat, stats, rows)
     b, P = rx_pin.shape
     vh = seed.size - P + 1
     rows_out = b if mode == wv.FIRST else hat.shape[0]
     src = (np.arange(b) if mode == wv.FIRST
-           else wv._source_rows(mode, failed, rows, b, rows_out))
+           else wv._source_rows(rows, b, rows_out))
     where = _payload_source(layout)
     S = _packed_seed(seed, 16 * (wv._groups(P) + 1))
     hat_out = np.zeros((rows_out, P), np.uint8)
@@ -186,10 +190,8 @@ def _model_tail(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
     for d in range(rows_out):
         i = src[d]
         if i < 0:
-            old = stats[d]
             hat_out[d] = hat[d]
-            st[d] = ([old[0] != 0, max(old[1], iters[d])]
-                     if mode == wv.RETRY else list(old[:2])) + list(old[2:])
+            st[d] = stats[d]
             continue
         h = np.where(pin[i], rx_pin[i], bits[i, where])
         hat_out[d] = h
@@ -199,9 +201,7 @@ def _model_tail(bits, rx_pin, pin, rx_orig, seed, exp_hashes, converged,
         if mode == wv.FIRST:
             st[d] = [ok, iters[i], errs, mism[d]]
         else:
-            keep = mode == wv.RETRY and stats[d, 0] != 0
-            st[d] = [keep or ok, max(stats[d, 1], iters[i]), errs,
-                     stats[d, 3]]
+            st[d] = [ok, max(stats[d, 1], iters[i]), errs, stats[d, 3]]
     return hat_out, st
 
 
@@ -457,28 +457,21 @@ def test_plan_picks_by_occupancy_and_raises_when_nothing_fits():
         wv.plan(4, 4, P, 65, 32, True, SMS, _occupancy)
 
 
-@pytest.mark.parametrize("mode", [wv.RETRY, wv.RETRY_SMALL])
-def test_row_order_puts_merged_rows_first(mode):
-    """The retries' row order: the merged window rows (retry_small's in
-    the order of its decoded rows, which need not be contiguous or sorted),
-    then the kept rows, each row once; the kernel's decoded row of item k
-    (retry_program: the window row itself; retry_small: k) maps back."""
+@pytest.mark.parametrize("rows", [[9, 2, 7], [3, 11, 0, 5, 1, 10, 2, 8, 6,
+                                          4, 9, 7]], ids=["some", "all"])
+def test_row_order_puts_merged_rows_first(rows):
+    """A retry's row order: the merged window rows in the order of their
+    decoded rows (which need not be contiguous or sorted), then the kept
+    rows, each row once; the kernel's decoded row of item k is k."""
     B = 12
-    if mode == wv.RETRY:
-        failed = np.zeros(B, bool)
-        failed[[1, 4, 5, 10]] = True
-        src = wv._source_rows(mode, failed, None, B, B)
-    else:
-        rows = np.array([9, 2, 7])
-        src = wv._source_rows(mode, None, rows, 3, B)
+    src = wv._source_rows(np.array(rows), len(rows), B)
     order, merged = wv._row_order(src)
     assert sorted(order.tolist()) == list(range(B))
     assert (src[order[:merged]] >= 0).all() and (src[order[merged:]] < 0).all()
+    assert merged == len(rows)
     for k in range(merged):
-        i = order[k] if mode == wv.RETRY else k
-        assert src[order[k]] == i
-    if mode == wv.RETRY_SMALL:
-        assert order[:merged].tolist() == [9, 2, 7]
+        assert src[order[k]] == k
+    assert order[:merged].tolist() == rows
 
 
 # ---------------------------------------------------------------------------
@@ -487,10 +480,12 @@ def test_row_order_puts_merged_rows_first(mode):
 @pytest.fixture(scope="module")
 def window():
     """One window through the reference's and the port's programs: Alice,
-    Bob's first decode, retry_program (all but the two clean rows failed,
-    the clean rows' old iterations set to 0) and retry_small (four of the
-    failed rows); each ``window_verify.tail`` call's arguments and
-    result recorded."""
+    Bob's first decode and three retries from it (the port's ``retry`` of
+    the failed rows, all but the two clean ones, against the reference's
+    ``retry_program``; of four of the failed rows against its
+    ``retry_small``; of every row against ``retry_program`` with every row
+    failed); each ``window_verify.tail`` call's arguments and result
+    recorded, in that order (``CALLS``)."""
     jcode = make_regular_code(1024)
     z = jcode.z
     pay = _expand([c for c in range(jcode.nb) if c not in (3, 9)], z)
@@ -544,16 +539,24 @@ def _run_window(jp, tp, P, k_pb, s_max, kr):
     positions = np.asarray(prng.subset_indices(prng.root_key(3), P, kr),
                            np.int32)
     bits = payload[:, positions]
+    # The old stats are the first decode's own, as the protocol hands them
+    # over (the reference's maximum of the iterations over every row then
+    # changes none).
     stats_prev = t_bob[4].numpy().copy()
-    stats_prev[~failed, 1] = 0
-    jr = jp.retry(jnp.asarray(b_arena), jnp.asarray(hdr_b), *j_bob[1:4],
-                  j_bob[0], jnp.asarray(stats_prev),
-                  jnp.asarray(failed.astype(np.uint8)),
-                  jnp.asarray(positions), jnp.asarray(bits), jnp.asarray(syn),
-                  jnp.asarray(hashes), jnp.float32(qmag))
-    tt = tp.retry(t(b_arena), hdr_b, *t_bob[1:4], t_bob[0], t(stats_prev),
-                  failed.astype(np.uint8), positions, t(bits), t(syn),
-                  t(hashes), qmag)
+
+    def j_retry(failed_rows):
+        return jp.retry(jnp.asarray(b_arena), jnp.asarray(hdr_b), *j_bob[1:4],
+                        j_bob[0], jnp.asarray(stats_prev),
+                        jnp.asarray(failed_rows.astype(np.uint8)),
+                        jnp.asarray(positions), jnp.asarray(bits),
+                        jnp.asarray(syn), jnp.asarray(hashes),
+                        jnp.float32(qmag))
+
+    def t_retry(rows):
+        return tp.retry(t(b_arena), hdr_b, *t_bob[1:4], t_bob[0],
+                        t(stats_prev), rows, positions, t(bits), t(syn),
+                        t(hashes), qmag)
+    jr, tt = j_retry(failed), t_retry(np.flatnonzero(failed))
     R = 8
     sel = np.flatnonzero(failed)[[0, 3, 5, 8]]
     rows = np.full(R, B, np.int32)
@@ -565,14 +568,13 @@ def _run_window(jp, tp, P, k_pb, s_max, kr):
                          jnp.asarray(valid), jnp.asarray(positions),
                          jnp.asarray(bits), jnp.asarray(syn),
                          jnp.asarray(hashes), jnp.float32(qmag))
-    trs = tp.retry_small(t(b_arena), hdr_b, *t_bob[1:4], t_bob[0], t_bob[4],
-                         rows, valid, positions, t(bits), t(syn), t(hashes),
-                         qmag)
+    trs = t_retry(sel)
+    jall, tall = j_retry(np.ones(B, bool)), t_retry(np.arange(B))
     vseed = tr.seed_rows_at_plain(wkey, (TAG_VERIFY,), range(1), P + VH - 1,
                                   "cpu")[0]
     return dict(failed=failed, stats_prev=stats_prev, vseed=vseed,
                 j_alice=j_alice, t_alice=t_alice, j_bob=j_bob, t_bob=t_bob,
-                jr=jr, tt=tt, jrs=jrs, trs=trs)
+                jr=jr, tt=tt, jrs=jrs, trs=trs, jall=jall, tall=tall)
 
 
 def _eq_decoded(j_hat, t_hat, j_stats, t_stats):
@@ -585,12 +587,15 @@ def _eq_decoded(j_hat, t_hat, j_stats, t_stats):
     np.testing.assert_array_equal(np.asarray(j_hat)[ok], t_hat.numpy()[ok])
 
 
-def _call(window, mode):
-    """The recorded tail call of ``mode`` (its arguments, its result)."""
-    key = {wv.FIRST: "mism", wv.RETRY: "failed", wv.RETRY_SMALL: "rows"}[mode]
-    (found,) = [(a, kw, out) for a, kw, out in window["calls"]
-                if kw.get(key) is not None]
-    return found
+# The window's tail calls, in the order the fixture makes them.
+CALLS = ("first", "retry", "retry_small", "all_rows")
+
+
+def _call(window, name):
+    """The recorded tail call ``name`` of ``CALLS`` (its arguments, its
+    result)."""
+    assert len(window["calls"]) == len(CALLS)
+    return window["calls"][CALLS.index(name)]
 
 
 def test_hash_plain_equals_reference(window):
@@ -605,7 +610,7 @@ def test_hash_plain_equals_reference(window):
 
 def test_tail_plain_first_decode_equals_reference(window):
     jb, tb = window["j_bob"], window["t_bob"]
-    a, kw, (hat, stats) = _call(window, wv.FIRST)
+    a, kw, (hat, stats) = _call(window, "first")
     assert stats.shape == (B, 4) and stats.dtype == torch.int32
     _eq_decoded(jb[0], hat, jb[4], stats)
     assert torch.equal(tb[0], hat) and torch.equal(tb[4], stats)
@@ -616,17 +621,19 @@ def test_tail_plain_first_decode_equals_reference(window):
 
 
 def test_tail_plain_retry_program_equals_reference(window):
-    """More than 8 failed rows; the unfailed rows' old iterations (set to
-    0) take the new decode's, as the reference's maximum over every row
-    does."""
+    """The rows merge of more than 8 failed rows == the reference's
+    ``retry_program`` merge: equal only because the old stats are the first
+    decode's own (the unfailed rows, which the port leaves as they were,
+    re-decode there to their own iterations)."""
     jr, tt = window["jr"], window["tt"]
-    a, kw, (hat, stats) = _call(window, wv.RETRY)
-    assert kw["failed"].sum() > 8
+    a, kw, (hat, stats) = _call(window, "retry")
+    assert list(kw["rows"]) == list(np.flatnonzero(window["failed"]))
+    assert len(kw["rows"]) > 8
     _eq_decoded(jr[0], hat, jr[3], stats)
     assert torch.equal(tt[0], hat) and torch.equal(tt[3], stats)
     unfailed = ~window["failed"]
-    old_iters = window["stats_prev"][unfailed, 1]
-    assert (stats.numpy()[unfailed, 1] > old_iters).all()
+    np.testing.assert_array_equal(stats.numpy()[unfailed],
+                                  window["stats_prev"][unfailed])
     np.testing.assert_array_equal(hat.numpy()[unfailed],
                                   window["t_bob"][0].numpy()[unfailed])
     again = wv.tail_plain(*a, **kw)
@@ -635,7 +642,7 @@ def test_tail_plain_retry_program_equals_reference(window):
 
 def test_tail_plain_retry_small_equals_reference(window):
     jrs, trs = window["jrs"], window["trs"]
-    a, kw, (hat, stats) = _call(window, wv.RETRY_SMALL)
+    a, kw, (hat, stats) = _call(window, "retry_small")
     assert list(kw["rows"]) == list(np.flatnonzero(window["failed"])[
         [0, 3, 5, 8]])
     _eq_decoded(jrs[0], hat, jrs[3], stats)
@@ -647,13 +654,30 @@ def test_tail_plain_retry_small_equals_reference(window):
     assert torch.equal(again[0], hat) and torch.equal(again[1], stats)
 
 
-@pytest.mark.parametrize("mode", [wv.FIRST, wv.RETRY, wv.RETRY_SMALL],
-                         ids=["first", "retry", "retry_small"])
-def test_kernel_model_of_the_tail_equals_tail_plain(window, mode):
+def test_tail_plain_all_rows_equals_reference(window):
+    """The rows merge of every row of the window (no row kept) == the
+    reference's ``retry_program`` with every row failed: the clean rows
+    verify again with the extra pins."""
+    jall, tall = window["jall"], window["tall"]
+    a, kw, (hat, stats) = _call(window, "all_rows")
+    assert list(kw["rows"]) == list(range(B))
+    _eq_decoded(jall[0], hat, jall[3], stats)
+    assert torch.equal(tall[0], hat) and torch.equal(tall[3], stats)
+    assert stats.numpy()[~window["failed"], 0].all()
+    again = wv.tail_plain(*a, **kw)
+    assert torch.equal(again[0], hat) and torch.equal(again[1], stats)
+
+
+@pytest.mark.parametrize("name", ["first", "retry_small", "over_8_rows",
+                                  "all_rows"])
+def test_kernel_model_of_the_tail_equals_tail_plain(window, name):
     """The kernel's row-by-row tail (the row map the wrapper builds, the
     column lookup, the word hash, each mode's merge and its rows left as
-    they were) == tail_plain on the program's own call, every row."""
-    a, kw, (hat, stats) = _call(window, mode)
+    they were) == tail_plain on the program's own call, every row: the
+    first decode and the rows merge of 4, 10 (more than 8) and all 12
+    rows."""
+    a, kw, (hat, stats) = _call(window, "retry" if name == "over_8_rows"
+                                else name)
     got_hat, got_stats = _model_tail(*a, **kw)
     np.testing.assert_array_equal(got_hat, hat.numpy())
     np.testing.assert_array_equal(got_stats, stats.numpy())
@@ -700,7 +724,6 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     before = dict(wv.launches)
     wv.hash(d["rx_pin"], d["seed"])
     wv.tail(**d, mism=torch.zeros(3, dtype=torch.int32))
-    wv.tail(**d, **_retry(d), failed=np.array([1, 0, 1]))
     wv.tail(**d, **_retry(d), rows=np.array([2, 0, 1]))
     assert wv.launches == before
 
@@ -713,7 +736,6 @@ def test_a_call_that_would_launch_raises_without_the_kernel(cpu_as_card):
     with pytest.raises(RuntimeError, match="cannot build verify"):
         wv.hash(d["rx_pin"], d["seed"])
     for mode in (dict(mism=torch.zeros(3, dtype=torch.int32)),
-                 dict(_retry(d), failed=np.array([1, 0, 1])),
                  dict(_retry(d), rows=np.array([2, 0]))):
         args = dict(d)
         if "rows" in mode:
@@ -753,7 +775,7 @@ def test_bad_hash_arguments_raise_before_a_build(cpu_as_card, x, seed,
     (dict(seed=lambda d: torch.zeros(896 + 70, dtype=torch.uint8)),
      "Vh = 71 outside"),
     (dict(mism=lambda d: None), "exactly one of"),
-    (dict(failed=lambda d: np.array([1, 0, 1])), "exactly one of"),
+    (dict(rows=lambda d: np.array([1, 0, 2])), "exactly one of"),
     (dict(hat=lambda d: d["rx_orig"]), "hat and stats go with"),
     (dict(mism=lambda d: torch.zeros(3, dtype=torch.int64)), "mism must be"),
 ])
@@ -769,15 +791,16 @@ def test_bad_tail_arguments_raise_before_a_build(cpu_as_card, change, match):
     (dict(rows=np.array([2, 0, 2])), "repeats a row"),
     (dict(rows=np.array([0, 1, 3])), "rows must be"),
     (dict(rows=np.array([0, 1])), "rows must be"),
-    (dict(failed=np.array([1, 0])), "failed must be"),
+    (dict(rows=torch.tensor([0, 1, 2], device="meta")),
+     "must be a host array"),
     (dict(rows=np.array([0, 1, 2]), stats=torch.zeros((3, 3),
                                                       dtype=torch.int32)),
      "stats must be"),
 ])
 def test_bad_retry_merges_raise_before_a_build(cpu_as_card, mode, match):
     """A row map with a repeated row (the kernel's rows would race), rows
-    outside the window or not one a decoded row, a failed mask of another
-    length, old stats of another shape."""
+    outside the window or not one a decoded row, rows on a device (the
+    host builds the row order), old stats of another shape."""
     d = _small()
     with pytest.raises(ValueError, match=match):
         wv.tail(**d, **dict(_retry(d), **mode))
