@@ -386,8 +386,10 @@ def cluster_sweep(label, code, llr, syn, max_iters, reps, alg="layered",
             p = cuda_bp.KernelPlan(C, *sh)
 
             def run():
-                return cuda_bp._decode_at(name, code, tab, llr, syn,
-                                          max_iters, 0.8125, p)
+                return cuda_bp._run(name, code.n, tab.data_ptr(),
+                                    cuda_bp._launch_args(code, B, max_iters,
+                                                         0.8125, p),
+                                    llr, syn)
             got = run()
             assert torch.equal(got.bits, ref.bits) and torch.equal(
                 got.iterations, ref.iterations) and torch.equal(

@@ -143,12 +143,19 @@ def entry(library: str, name: str, argtypes: tuple):
 
 def call(library: str, name: str, argtypes: tuple, dev, *args) -> None:
     """Call entry point ``qtpu_<name>`` of ``library`` with ``args`` and
-    the current stream of CUDA device ``dev``; raises when it returns an
-    error (a refused launch, arguments it does not take)."""
+    the current stream of CUDA device ``dev`` (a ``torch.device``), by its
+    raw handle; makes ``dev`` the current device around the call only when
+    it is not already.  Raises when the entry point returns an error (a
+    refused launch, arguments it does not take)."""
     import torch
     fn = entry(library, name, argtypes)
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    if index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed (code {rc})")
 

@@ -14,12 +14,17 @@ In both, a code block's whole decoder state (totals and compact check-node
 state) lives in the shared memory of one CTA or of a thread-block cluster
 of C CTAs; the wrapper picks C and the threads per CTA from the code's
 shape and the batch (``layered_plan``, ``flooding_plan``) and allocates
-only the outputs.
+only the outputs.  A decoder plans its launch at the first call on a
+device at a batch size and keeps it: a later call there checks its
+inputs, allocates the outputs and makes one call of the entry point.
 
 On a CPU tensor the decoder runs the plain PyTorch version
 (``qtpu_torch.ldpc.decode``); on a CUDA tensor it launches the kernel or
-raises.  ``launches[name]`` counts each kernel's launches and
-``launch_batches[name]`` how many launches ran at each batch size.
+raises.  ``launches[name]`` counts each kernel's launches,
+``launch_batches[name]`` how many launches ran at each batch size and
+``plans_made[name]`` the launches its decoders planned (one a decoder,
+device and batch size; ``1 - plans_made / launches`` of the launches
+reused a plan).
 """
 
 from __future__ import annotations
@@ -38,8 +43,8 @@ from qtpu_torch.ldpc.decode import (BatchDecodeResult, make_flooding_decoder,
                                     make_layered_decoder)
 
 __all__ = ["make_cuda_decoder", "code_tables", "flooding_tables", "launches",
-           "launch_batches", "KERNELS", "KernelPlan", "layered_plan",
-           "flooding_plan"]
+           "launch_batches", "plans_made", "KERNELS", "KernelPlan",
+           "layered_plan", "flooding_plan"]
 
 MAX_DC = 32           # edges of a base row the kernels take (both kernels)
 MAX_THREADS = 512
@@ -56,9 +61,11 @@ FLOODING_THREADS = (512, 1024)
 KERNELS = {"layered": "bp_layered", "minsum": "bp_flooding"}
 
 # Kernel launches per kernel since import (or since a caller reset them),
-# and per kernel the number of launches at each batch size.
+# per kernel the number of launches at each batch size, and per kernel the
+# launches a decoder planned (its first at a device and batch size).
 launches = {name: 0 for name in KERNELS.values()}
 launch_batches = {name: collections.Counter() for name in KERNELS.values()}
+plans_made = {name: 0 for name in KERNELS.values()}
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Both entry points: llr, syndrome, table, bits, converged, iterations; B,
@@ -240,21 +247,31 @@ def _outputs(B: int, n: int, dev):
             torch.empty((B,), dtype=torch.int32, device=dev))
 
 
-def _decode_at(name: str, code: QCCode, table: torch.Tensor,
-               llr: torch.Tensor, syndrome: torch.Tensor, max_iters: int,
-               alpha: float, plan: KernelPlan) -> BatchDecodeResult:
+def _launch_args(code: QCCode, B: int, max_iters: int, alpha: float,
+                 plan: KernelPlan) -> tuple:
+    """A launch's arguments after its six pointers: B, mb, nb, z, E,
+    max_dc, max_iters, alpha, cluster, threads, smem."""
+    return (B, code.mb, code.nb, code.z, code.num_edges, _max_dc(code),
+            int(max_iters), float(alpha), plan.cluster, plan.threads,
+            plan.smem)
+
+
+def _run(name: str, n: int, table: int, args: tuple, llr: torch.Tensor,
+         syndrome: torch.Tensor) -> BatchDecodeResult:
     """One launch of kernel ``name`` (its library's entry point of the
-    same name) on checked CUDA inputs at ``plan``'s shape.  Counts
-    nothing: ``make_cuda_decoder``'s decoder does."""
-    B, dev = llr.shape[0], llr.device
-    bits, converged, iterations = _outputs(B, code.n, dev)
+    same name) on checked CUDA inputs, with the code table at device
+    address ``table`` and ``_launch_args``' ``args``.  Counts nothing:
+    ``make_cuda_decoder``'s decoder does."""
+    dev = llr.device
+    bits, converged, iterations = _outputs(args[0], n, dev)
     _build.call(name, name, _ARGTYPES, dev, llr.data_ptr(),
-                syndrome.data_ptr(), table.data_ptr(), bits.data_ptr(),
-                converged.data_ptr(), iterations.data_ptr(), B, code.mb,
-                code.nb, code.z, code.num_edges, _max_dc(code),
-                int(max_iters), float(alpha), plan.cluster, plan.threads,
-                plan.smem)
+                syndrome.data_ptr(), table, bits.data_ptr(),
+                converged.data_ptr(), iterations.data_ptr(), *args)
     return BatchDecodeResult(bits, converged, iterations)
+
+
+def _on_card(dev: torch.device) -> bool:
+    return dev.type == "cuda"
 
 
 def make_cuda_decoder(code: QCCode, max_iters: int, alpha: float = 0.8125,
@@ -275,8 +292,11 @@ def make_cuda_decoder(code: QCCode, max_iters: int, alpha: float = 0.8125,
     else:
         raise ValueError(f"unknown alg {alg!r}")
     name = KERNELS[alg]
-    mb, nb, z = code.mb, code.nb, code.z
+    n, m = code.nb * code.z, code.mb * code.z
     tables: dict = {}
+    # (device, B) -> (code table's address, _launch_args): the launch
+    # planned at the first call there.
+    prepared: dict = {}
 
     def decode(llr: torch.Tensor, syndrome: torch.Tensor) -> BatchDecodeResult:
         with tracing.span("decode"):
@@ -284,33 +304,42 @@ def make_cuda_decoder(code: QCCode, max_iters: int, alpha: float = 0.8125,
 
     def checked(llr: torch.Tensor,
                 syndrome: torch.Tensor) -> BatchDecodeResult:
-        if llr.device.type == "cpu" and syndrome.device.type == "cpu":
+        dev, sdev = llr.device, syndrome.device
+        card = _on_card(dev)
+        if not card and dev.type == "cpu" and sdev.type == "cpu":
             return plain(llr, syndrome)
-        if not (llr.is_cuda and syndrome.device == llr.device):
-            raise ValueError(f"llr on {llr.device}, syndrome on "
-                             f"{syndrome.device}: need both on one CUDA "
-                             f"device (or both on the CPU)")
+        if not (card and sdev == dev):
+            raise ValueError(f"llr on {dev}, syndrome on {sdev}: need both "
+                             f"on one CUDA device (or both on the CPU)")
         B = llr.shape[0]
-        if llr.dtype != torch.float32 or llr.shape != (B, nb * z):
-            raise ValueError(f"llr must be float32 (B, {nb * z}), got "
+        if llr.dtype != torch.float32 or llr.shape != (B, n):
+            raise ValueError(f"llr must be float32 (B, {n}), got "
                              f"{llr.dtype} {tuple(llr.shape)}")
-        if syndrome.dtype != torch.uint8 or syndrome.shape != (B, mb * z):
-            raise ValueError(f"syndrome must be uint8 (B, {mb * z}), got "
+        if syndrome.dtype != torch.uint8 or syndrome.shape != (B, m):
+            raise ValueError(f"syndrome must be uint8 (B, {m}), got "
                              f"{syndrome.dtype} {tuple(syndrome.shape)}")
         if not (llr.is_contiguous() and syndrome.is_contiguous()):
             raise ValueError("llr and syndrome must be contiguous")
-        dev = llr.device
         if B == 0:
-            return BatchDecodeResult(*_outputs(0, nb * z, dev))
-        if dev not in tables:
-            tables[dev] = torch.from_numpy(tab_np).to(dev)
-        with tracing.span("decode.plan"):
-            shape = plan(code, dev, B)
-        with tracing.span("decode.launch"):
-            res = _decode_at(name, code, tables[dev], llr, syndrome,
-                             max_iters, alpha, shape)
+            return BatchDecodeResult(*_outputs(0, n, dev))
+        res = _run(name, n, *(prepared.get((dev, B)) or prepare(dev, B)),
+                   llr, syndrome)
         launches[name] += 1
         launch_batches[name][B] += 1
         return res
+
+    def prepare(dev: torch.device, B: int) -> tuple:
+        """Plan the launch at (dev, B), once: the code table on ``dev``,
+        the plan, the entry point and every argument no call changes."""
+        with tracing.span("decode.plan"):
+            if dev not in tables:
+                tables[dev] = torch.from_numpy(tab_np).to(dev)
+            shape = plan(code, dev, B)
+            _build.entry(name, name, _ARGTYPES)
+            launch = (tables[dev].data_ptr(),
+                      _launch_args(code, B, max_iters, alpha, shape))
+        prepared[dev, B] = launch
+        plans_made[name] += 1
+        return launch
 
     return decode

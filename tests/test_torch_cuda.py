@@ -10,7 +10,9 @@ switched off):
 
 Tolerance: exact — each kernel against its plain PyTorch decoder (bits,
 iterations, converged; the layered kernel at every native3 rung of
-n = 65536, hence at every cluster size the production ladder uses), the
+n = 65536, hence at every cluster size the production ladder uses; a
+launch a decoder prepared at its first call at a batch size against that
+call and the plain decoder, and on the caller's side stream), the
 threefry kernel's two entry points against the plain PyTorch versions
 of ``qtpu_torch.random`` (seed rows at the PA seed's, the verify seed's and
 the pad's lengths, offsets at the ladder's spans, every draw table of the
@@ -323,6 +325,73 @@ def test_flooding_kernel_raises_before_launch_on_shapes_it_cannot_take(dev):
         cuda_bp.make_cuda_decoder(_one_row_code(32, 40, d=33), 10,
                                   alg="minsum")
     assert cuda_bp.launches == before
+
+
+def _rows_of(res, k):
+    return type(res)(res.bits[:k], res.converged[:k], res.iterations[:k])
+
+
+@pytest.mark.parametrize("alg", ["layered", "minsum"])
+@pytest.mark.parametrize("which,sizes", [
+    ("regular4096", (1024,)),
+    ("native3_65536", (128,)),
+    ("native3_65536", tuple(range(1, 12))),
+])
+def test_prepared_launch_matches_planning_call_and_plain(dev, alg, which,
+                                                         sizes):
+    """At each batch size the decoder's first call plans; later calls,
+    on the same inputs and on copies at other addresses, reuse the plan.
+    All equal the plain decoder bit for bit (retry-sized batches of 1-11
+    rows against the plain decoder's first rows of one batch of 11)."""
+    if which == "regular4096":
+        code, punct = make_regular_code(4096), ()
+        qbers = np.linspace(0.01, 0.05, max(sizes))
+    else:
+        step = _native3_65536().steps[6]
+        code, punct = step.code, step.punct_cols
+        qbers = np.linspace(0.02, 0.04, max(sizes))
+    llr, syn = _inputs(code, qbers, 11, dev, punct)
+    plain = (make_layered_decoder if alg == "layered" else
+             make_flooding_decoder)(code, 60)(llr, syn)
+    dec = cuda_bp.make_cuda_decoder(code, 60, alg=alg)
+    name = cuda_bp.KERNELS[alg]
+    for B in sizes:
+        x, s = llr[:B].contiguous(), syn[:B].contiguous()
+        plans = cuda_bp.plans_made[name]
+        first = dec(x, s)
+        assert cuda_bp.plans_made[name] == plans + 1
+        again, moved = dec(x, s), dec(x.clone(), s.clone())
+        torch.cuda.synchronize()
+        assert cuda_bp.plans_made[name] == plans + 1
+        for res in (first, again, moved):
+            _same(res, _rows_of(plain, B))
+
+
+@pytest.mark.parametrize("planned", [False, True])
+def test_decoder_launches_on_the_callers_stream(dev, planned):
+    """A call made on a side stream launches there, whether it plans or
+    reuses a plan: held behind an event of a sleeping stream, its kernel
+    has not run when the call returns, the default stream is idle, and
+    after the wait its outputs equal the plain decoder's."""
+    step = _native3_65536().steps[6]
+    llr, syn = _inputs(step.code, np.linspace(0.02, 0.04, 128), 12, dev,
+                       step.punct_cols)
+    dec = cuda_bp.make_cuda_decoder(step.code, 60)
+    if planned:
+        dec(llr, syn)
+    torch.cuda.synchronize()
+    side, sleeper = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    with torch.cuda.stream(sleeper):
+        torch.cuda._sleep(200_000_000)
+        held = torch.cuda.Event()
+        held.record()
+    side.wait_event(held)
+    with torch.cuda.stream(side):
+        res = dec(llr, syn)
+    assert not side.query()
+    assert torch.cuda.current_stream(dev).query()
+    side.synchronize()
+    _same(res, make_layered_decoder(step.code, 60)(llr, syn))
 
 
 def test_kernel_rejects_bad_inputs(dev):

@@ -6,8 +6,8 @@ of its own, and as many spans as the session reports windows, retries and
 decodes; each top-level span holds its ``qtpu_torch:`` twin in the
 exported Chrome trace, and agrees with it where no other thread runs,
 while nested spans open no range; a full buffer counts what it drops.
-The decoder's ``decode.plan`` and ``decode.launch`` and the kernels'
-``build`` run only on a card."""
+The decoder's ``decode.plan`` and the kernels' ``build`` run only on a
+card."""
 
 import collections
 import json
@@ -100,7 +100,7 @@ def test_profiled_session_records_every_span(traced):
     names = {sp.name for sp in rec.spans}
     assert SESSION_SPANS <= names, SESSION_SPANS - names
     # Only a card plans and launches the kernels and builds them.
-    assert not names & {"decode.plan", "decode.launch", "build"}
+    assert not names & {"decode.plan", "build"}
     assert rec.dropped == 0
 
 
